@@ -1,0 +1,235 @@
+"""The deformable U-Net generator (PyTorch modules).
+
+Counterpart of ``Block``, ``Encoder``, ``Decoder`` and
+``DeformableGenerator`` in ``pose_transfer_tpu/models/networks.py``.
+
+Module attribute names reproduce the reference PyTorch state_dict names
+(the keys ``pose_transfer_tpu/models/import_torch.py`` maps), so a
+reference checkpoint loads with ``load_state_dict`` as it is:
+  encoder_app.net.0.{weight,bias}             full-res k3 conv
+  encoder_app.net.{i}.net.1.weight            Block conv (i ≥ 1)
+  encoder_app.net.{i}.net.2.{weight,bias}     Block volume norm
+  decoder.net.{i}.net.1.weight                Block transposed conv
+  decoder.net.{i}.net.3.{weight,bias}         Block volume norm
+  decoder.net.{n}.{weight,bias}               final k3 conv
+
+Parameters are float32; ``dtype`` is the compute dtype (convolutions cast
+their weights to it, the norm computes in f32 and rounds back), as flax's
+``dtype`` does. The public layout is NHWC; inside, the convolution stacks
+run NCHW views of ``channels_last`` tensors, so the permutes at the
+boundary are views.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core import pose as pose_ops
+from ..core import transforms_host as th
+from ..ops.norm import volume_instance_norm
+from ..ops.warp import affine_transform_layer, plan_folds
+
+
+def encoder_filters_for(image_size: tuple[int, int]) -> tuple[int, ...]:
+    """Filter ladder selection (reference pose_gan.py)."""
+    if max(image_size) < 256:
+        return (64, 128, 256, 512, 512, 512)
+    return (64, 128, 256, 512, 512, 512, 512)
+
+
+def decoder_filters_for(image_size: tuple[int, int]) -> tuple[int, ...]:
+    if max(image_size) < 256:
+        return (512, 512, 512, 256, 128, 3)
+    return (512, 512, 512, 512, 256, 128, 3)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype (f32 parameters)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """k4s2 ``nn.ConvTranspose2d`` with padding 1 — the reference's VALID
+    transposed conv followed by a crop of 1 — in the input's dtype."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
+                                  self.stride, self.padding)
+
+
+class VolumeInstanceNorm(nn.Module):
+    """Scalar-affine whole-volume instance norm (InstanceNorm3d(1) on the
+    (N, 1, C, H, W) view): weight/bias of shape (1,)."""
+
+    def __init__(self, eps: float = 1e-3, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(1, device=device))
+        self.bias = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, x):
+        return volume_instance_norm(x, self.weight, self.bias, self.eps)
+
+
+class Block(nn.Module):
+    """Down: LeakyReLU(0.2) → k4s2p1 conv → norm.
+    Up: ReLU → k4s2 transposed conv (+crop 1) → norm → Dropout2d(0.5).
+    ``net`` indices follow the reference's Sequential."""
+
+    def __init__(self, in_ch: int, out_ch: int, down: bool = True,
+                 bn: bool = True, dropout: bool = False, device=None):
+        super().__init__()
+        if down:
+            layers = [nn.LeakyReLU(0.2),
+                      Conv2d(in_ch, out_ch, 4, 2, 1, bias=False,
+                             device=device)]
+        else:
+            layers = [nn.ReLU(),
+                      ConvTranspose2d(in_ch, out_ch, 4, 2, 1, bias=False,
+                                      device=device),
+                      nn.Identity()]        # the reference's crop slot
+        if bn:
+            layers.append(VolumeInstanceNorm(device=device))
+        if dropout:
+            layers.append(nn.Dropout2d(0.5))
+        self.net = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class Encoder(nn.Module):
+    """Shared U-Net encoder; returns every stage output (NCHW) as a skip."""
+
+    def __init__(self, in_ch: int, nfilters: Sequence[int], device=None):
+        super().__init__()
+        layers = [Conv2d(in_ch, nfilters[0], 3, 1, 1, device=device)]
+        for i in range(1, len(nfilters)):
+            layers.append(Block(nfilters[i - 1], nfilters[i],
+                                bn=(i != len(nfilters) - 1), device=device))
+        self.net = nn.ModuleList(layers)
+
+    def forward(self, x):
+        outputs = []
+        for layer in self.net:
+            x = layer(x)
+            outputs.append(x)
+        return outputs
+
+
+class Decoder(nn.Module):
+    """U-Net decoder over skip-concats: up Blocks (dropout on the first 3),
+    then ReLU → k3 conv → tanh. Every skip is [warped appearance ‖ pose]:
+    twice the encoder's width."""
+
+    def __init__(self, nfilters_dec: Sequence[int],
+                 nfilters_enc: Sequence[int], device=None):
+        super().__init__()
+        n = len(nfilters_dec)
+        layers = []
+        in_ch = 2 * nfilters_enc[-1]
+        for i in range(n - 1):
+            layers.append(Block(in_ch, nfilters_dec[i], down=False,
+                                dropout=(i < 3), device=device))
+            in_ch = nfilters_dec[i] + 2 * nfilters_enc[-(i + 2)]
+        layers.append(nn.ReLU())
+        layers.append(Conv2d(in_ch, nfilters_dec[-1], 3, 1, 1,
+                             device=device))
+        self.net = nn.ModuleList(layers)
+
+    def forward(self, skips):
+        n = len(self.net) - 1            # blocks + ReLU
+        out = self.net[0](skips[-1])
+        for i in range(1, n - 1):
+            out = self.net[i](torch.cat([out, skips[-(i + 1)]], dim=1))
+        out = torch.cat([out, skips[-n]], dim=1)
+        out = self.net[n](self.net[n - 1](out))
+        return torch.tanh(out)
+
+
+class DeformableGenerator(nn.Module):
+    """Dual-encoder U-Net with deformable (affine-warped) skips.
+
+    ``forward(inp, warps, masks)``: inp (N, H, W, 3+2K) packed input,
+    warps (N, T, 8), masks (N, T, H, W) or None → (N, H, W, 3) in [-1, 1].
+    The appearance skips of the first ``num_warp_stages`` stages go
+    through ``affine_transform_layer``.
+    """
+
+    def __init__(self, pose_dim: int, image_size: tuple[int, int],
+                 nfilters_enc: Sequence[int], nfilters_dec: Sequence[int],
+                 warp_skip: str = "mask", warp_agg: str = "max",
+                 use_input_pose: bool = True, num_warp_stages: int = 4,
+                 warp_windowed: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.pose_dim = pose_dim
+        self.image_size = tuple(image_size)
+        self.warp_skip = warp_skip
+        self.warp_agg = warp_agg
+        self.use_input_pose = use_input_pose
+        self.num_warp_stages = num_warp_stages
+        self.warp_windowed = warp_windowed
+        self.dtype = dtype
+        # without the input pose the packed input is [image ‖ target pose]
+        # and get_imgpose's target slice starts at 6: K - 3 channels
+        app_ch = 3 + pose_dim if use_input_pose else 3
+        pose_ch = pose_dim if use_input_pose else pose_dim - 3
+        self.encoder_app = Encoder(app_ch, nfilters_enc, device=device)
+        self.encoder_pose = Encoder(pose_ch, nfilters_enc, device=device)
+        self.decoder = Decoder(nfilters_dec, nfilters_enc, device=device)
+
+    def forward(self, inp, warps, masks):
+        def nchw(x):   # NHWC tensor → NCHW view with channels_last strides
+            return x.permute(0, 3, 1, 2)
+
+        inp = inp.to(self.dtype).contiguous()
+        inp_img, inp_pose, tg_pose = pose_ops.get_imgpose(
+            inp, self.use_input_pose, self.pose_dim)
+        inp_app = torch.cat([inp_img, inp_pose], dim=-1) \
+            if inp_pose is not None else inp_img
+        skips_app = self.encoder_app(nchw(inp_app.contiguous()))
+        skips_pose = self.encoder_pose(nchw(tg_pose.contiguous()))
+
+        # parts whose joints don't exist in this schema are empty for EVERY
+        # sample (pose_dim 16: head + 4 knee-adjacent limbs)
+        static_empty = th.static_empty_parts(self.pose_dim) \
+            if self.warp_skip == "mask" else ()
+        n_warp = min(self.num_warp_stages, len(skips_app))
+        feats = [s.permute(0, 2, 3, 1).contiguous()
+                 for s in skips_app[:n_warp]]
+        warps = warps.to(self.dtype)
+        plans = plan_folds([tuple(f.shape) for f in feats], warps, masks,
+                           self.dtype, self.warp_skip, self.warp_agg,
+                           self.warp_windowed, static_empty)
+        skips = []
+        for i, (sk_app, sk_pose) in enumerate(zip(skips_app, skips_pose)):
+            if i < n_warp:
+                warped = affine_transform_layer(
+                    feats[i], warps, masks, self.image_size, self.warp_skip,
+                    self.warp_agg, self.warp_windowed, static_empty,
+                    plan=plans[i])
+                sk_app = nchw(warped)
+            skips.append(torch.cat([sk_app, sk_pose], dim=1))
+        return self.decoder(skips).permute(0, 2, 3, 1)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Glorot-uniform conv weights, zero biases, unit/zero norm affines
+    (the reference's xavier init), drawn from ``generator`` in module
+    order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, VolumeInstanceNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)

@@ -1,0 +1,403 @@
+"""Multi-transform affine feature warping and the max fold (the deformable op).
+
+Counterpart of the forward, ``backend='matmul'`` path of
+``pose_transfer_tpu/ops/warp.py``. For each of the T part transforms the
+appearance skip is warped by an inverse pixel-space affine, multiplied by
+the part's mask (resized to the feature resolution), and the T results are
+folded by max (or mean).
+
+The warp is the two-pass (Catmull-Smith) resample of the JAX package as two
+banded-matrix products — NOT ``grid_sample``: for a transform with
+m10 ≠ 0 the vertical taps are evaluated at the source column, which differs
+from direct bilinear sampling by up to |m10| px. Same math, same numbers.
+
+Two fold paths, chosen per fold instance:
+- the full scan (``_fold_scan``): every part warped at full resolution,
+  folded in order with strict ``>`` (earliest part wins ties);
+- the windowed, kernel-placed fold (``_fold_windowed_place``): the body at
+  full resolution, every other part only inside its mask's bounding-box
+  window, placed by ``ops.warp_fused.fold_place``. Exact: outside its window
+  a part's masked contribution is zero, which the zero pass restores.
+The windowed fold needs every non-body part's support to fit its window.
+The JAX package decides that with one ``lax.cond`` per fold instance; here
+``plan_folds`` decides it for all fold instances of a forward with one host
+sync.
+
+Transforms are (T, 8) row-major first-8 of a 3×3 matrix acting on (x, y, 1),
+estimated at ``init_image_size``; translations are rescaled per feature
+resolution.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import warp_fused
+
+# fold instances that could have taken the windowed fold but fell back to
+# the full scan because some part's support did not fit its window
+COUNTS = {"scan_fallback": 0}
+
+
+def _resize_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out, n_in) bilinear interpolation matrix, cv2 INTER_LINEAR
+    semantics: half-pixel centers, clamped borders, no antialiasing."""
+    u = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    u0 = np.floor(u).astype(np.int64)
+    frac = u - u0
+    lo = np.clip(u0, 0, n_in - 1)
+    hi = np.clip(u0 + 1, 0, n_in - 1)
+    mat = np.zeros((n_out, n_in), np.float32)
+    mat[np.arange(n_out), lo] += 1.0 - frac
+    mat[np.arange(n_out), hi] += frac
+    return mat
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Resize the trailing-2 spatial dims (..., H, W) → (..., h, w) like
+    cv2.resize(..., INTER_LINEAR), as two static-matrix products computed
+    in ``x``'s dtype."""
+    h_in, w_in = x.shape[-2], x.shape[-1]
+    h_out, w_out = out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    ry = torch.as_tensor(_resize_matrix(h_out, h_in), dtype=x.dtype,
+                         device=x.device)
+    rx = torch.as_tensor(_resize_matrix(w_out, w_in), dtype=x.dtype,
+                         device=x.device)
+    return torch.matmul(torch.matmul(ry, x), rx.t())
+
+
+def _ramp(pos: torch.Tensor, n_in: int, dtype: torch.dtype) -> torch.Tensor:
+    """Bilinear tap weights along one axis as a dense banded matrix:
+    (...,) positions → (..., n_in) weights max(0, 1 - |pos - j|), rounded
+    to ``dtype``. Out-of-range taps vanish (zero padding)."""
+    j = torch.arange(n_in, dtype=torch.float32, device=pos.device)
+    w = (pos[..., None] - j).abs_().neg_().add_(1.0).clamp_(min=0.0)
+    return w.to(dtype)
+
+
+def _two_pass_weights(warps: torch.Tensor, h: int, w: int,
+                      init_image_size: tuple[int, int], dtype: torch.dtype,
+                      y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int):
+    """Banded weight matrices of the two-pass warp, restricted to the output
+    windows [y0, y0+s_y) × [x0, x0+s_x) (the full map is y0 = x0 = 0,
+    s_y = h, s_x = w: the windowed weights are a bit-exact subset).
+
+    Args:
+      warps: (N, P, 8) transforms in the compute dtype.
+      y0, x0: (N, P) integer window starts.
+
+    Returns:
+      wy: (N, W, P, S_y, H) vertical-pass weights (v evaluated at the source
+        column — the two-pass approximation; full x extent always).
+      wx: (N, P, S_y, S_x, W) horizontal-pass weights.
+    """
+    dev = warps.device
+    m00, m01, tx, m10, m11, ty = (warps[..., k] for k in range(6))
+    # the translation scale runs in the transforms' dtype, as in JAX
+    tx = (tx * (w / init_image_size[1])).float()
+    ty = (ty * (h / init_image_size[0])).float()
+    m00, m01, m10, m11 = (m.float() for m in (m00, m01, m10, m11))
+    ar_y = torch.arange(s_y, dtype=torch.float32, device=dev)
+    ar_x = torch.arange(s_x, dtype=torch.float32, device=dev)
+    y_out = y0.float()[..., None] + ar_y + 0.5                # (N, P, S_y)
+    x_out = x0.float()[..., None] + ar_x + 0.5                # (N, P, S_x)
+    x_full = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    # v: (N, W, P, S_y)
+    v = (m10[:, None, :, None] * x_full[None, :, None, None]
+         + m11[:, None, :, None] * y_out[:, None]
+         + ty[:, None, :, None] - 0.5)
+    wy = _ramp(v, h, dtype)
+    # u: (N, P, S_y, S_x)
+    u = (m00[..., None, None] * x_out[:, :, None, :]
+         + m01[..., None, None] * y_out[..., None]
+         + tx[..., None, None] - 0.5)
+    wx = _ramp(u, w, dtype)
+    return wy, wx
+
+
+def _warp_win(features: torch.Tensor, warps: torch.Tensor,
+              y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int,
+              init_image_size: tuple[int, int]) -> torch.Tensor:
+    """Windowed two-pass warps of every part: (N, H, W, C) features,
+    (N, P, 8) transforms, (N, P) window starts → (N, P, S_y, S_x, C).
+
+    Both passes accumulate in f32 and round once to the features' dtype,
+    as the JAX package's ``preferred_element_type`` dots do.
+    """
+    n, h, w, c = features.shape
+    p = warps.shape[1]
+    wy, wx = _two_pass_weights(warps, h, w, init_image_size, features.dtype,
+                               y0, x0, s_y, s_x)
+    # pass 1 (vertical): tmp[n, x, (p, o), c] = Σ_y wy[n, x, p, o, y]·f[n, y, x, c]
+    tmp = torch.matmul(wy.reshape(n, w, p * s_y, h),
+                       features.permute(0, 2, 1, 3))
+    tmp = tmp.reshape(n, w, p, s_y, c).permute(0, 2, 3, 1, 4)
+    # pass 2 (horizontal): out[n, p, o, a, c] = Σ_x wx[n, p, o, a, x]·tmp
+    return torch.matmul(wx, tmp)
+
+
+def _warp_full(features: torch.Tensor, warps: torch.Tensor,
+               init_image_size: tuple[int, int]) -> torch.Tensor:
+    """Full-map two-pass warp by per-sample (N, 8) transforms."""
+    n, h, w, _ = features.shape
+    zero = torch.zeros((n, 1), dtype=torch.int64, device=features.device)
+    return _warp_win(features, warps[:, None], zero, zero, h, w,
+                     init_image_size)[:, 0]
+
+
+def _support_windows(masks_r: torch.Tensor, s_y: int, s_x: int,
+                     x_align: int = 1):
+    """Window starts and flags from the resized masks' nonzero support.
+
+    Args:
+      masks_r: (N, T, h, w) nonnegative part masks at feature resolution.
+      s_y, s_x: static window sizes.
+      x_align: round x starts DOWN to this multiple; ``fits`` accounts for
+        the rounding.
+
+    Returns:
+      y0, x0: (N, T) int64 window starts, clipped in-bounds.
+      fits: (N, T) bool — the window covers the support (empty masks fit).
+      empty: (N, T) bool — mask has no nonzero pixel.
+    """
+    n, t, h, w = masks_r.shape
+    nz = masks_r > 0
+    rows = nz.any(dim=3)                                   # (N, T, h)
+    cols = nz.any(dim=2)                                   # (N, T, w)
+
+    def first_last(flags, extent):
+        idx = torch.arange(extent, device=flags.device)
+        first = torch.where(flags, idx, extent).amin(dim=-1)
+        last = torch.where(flags, idx, -1).amax(dim=-1)
+        return first, last
+
+    fy, ly = first_last(rows, h)
+    fx, lx = first_last(cols, w)
+    empty = ly < 0
+    y0 = torch.where(empty, 0, fy).clamp(0, h - s_y)
+    x0 = torch.where(empty, 0, fx)
+    if x_align > 1:
+        x0 = (x0 // x_align) * x_align
+        x_max = ((w - s_x) // x_align) * x_align
+    else:
+        x_max = w - s_x
+    x0 = x0.clamp(0, x_max)
+    fits = ((ly <= y0 + s_y - 1) & (lx <= x0 + s_x - 1)) | empty
+    return y0, x0, fits, empty
+
+
+def _windowable(h: int, w: int) -> bool:
+    """Even spatial dims and windows of at least 32 (the JAX package's
+    gate: deeper stages take the full scan)."""
+    return not (h % 2 or w % 2 or min(h // 2, w // 2) < 32)
+
+
+def _kernel_window_sizes(h: int, w: int):
+    """(s_y, s_x) of the placement kernel's windows, or None: s_x is
+    widened by X_ALIGN so that an aligned start still covers any support
+    of extent ≤ w//2."""
+    xa = warp_fused.X_ALIGN
+    if w % xa or (w // 2) % xa:
+        return None
+    return h // 2, min(w // 2 + xa, w)
+
+
+def _place_actives(t: int, static_empty: tuple[int, ...]) -> tuple[int, ...]:
+    """Fold order of the windowed (non-body) parts; idx stores these
+    ORIGINAL part indices."""
+    return tuple(i for i in range(1, t) if i not in static_empty)
+
+
+def _use_place_kernel(h, w, c, t, warp_agg, has_masks, windowed,
+                      static_empty) -> bool:
+    """Whether this fold instance may take the windowed, kernel-placed
+    fold (before the data-dependent fit check)."""
+    if not windowed or not has_masks or warp_agg != "max":
+        return False
+    if not _windowable(h, w):
+        return False
+    sizes = _kernel_window_sizes(h, w)
+    return sizes is not None and warp_fused.supported(h, w, c, *sizes) \
+        and bool(_place_actives(t, static_empty))
+
+
+def _slice_win(x: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+               s_y: int, s_x: int) -> torch.Tensor:
+    """Per-(sample, part) window slice: (N, P, h, w) maps with (N, P)
+    starts → (N, P, S_y, S_x)."""
+    n, p = y0.shape
+    dev = x.device
+    rows = y0[..., None] + torch.arange(s_y, device=dev)     # (N, P, S_y)
+    cols = x0[..., None] + torch.arange(s_x, device=dev)     # (N, P, S_x)
+    ni = torch.arange(n, device=dev)[:, None, None, None]
+    pi = torch.arange(p, device=dev)[None, :, None, None]
+    return x[ni, pi, rows[..., :, None], cols[..., None, :]]
+
+
+def _fold_scan(features, warps, masks_r, init_image_size, warp_agg,
+               static_empty=(), emit_idx=True):
+    """Full-resolution fold over the T transforms → (out, idx).
+
+    'max': strict ``>`` (earliest part wins ties), idx int8. With
+    ``static_empty`` those parts are compacted out: idx stores COMPACTED
+    positions, and their all-zero contribution joins as one final
+    ``max(acc, 0)`` with idx -1. 'avg' divides by the FULL part count.
+    idx is None for 'avg' and for ``emit_idx=False``.
+    """
+    n, h, w, c = features.shape
+    t = warps.shape[1]
+    active = [i for i in range(t) if i not in static_empty]
+    if warp_agg == "max":
+        acc = torch.full((n, h, w, c), float("-inf"), dtype=features.dtype,
+                         device=features.device)
+        idx = torch.zeros((n, h, w, c), dtype=torch.int8,
+                          device=features.device) if emit_idx else None
+        for k, i in enumerate(active):
+            warped = _warp_full(features, warps[:, i], init_image_size)
+            if masks_r is not None:
+                warped = warped * masks_r[:, i][..., None]
+            take = warped > acc
+            acc = torch.where(take, warped, acc)
+            if emit_idx:
+                idx = torch.where(take, torch.full_like(idx, k), idx)
+        if len(active) != t:
+            take0 = acc < 0
+            acc = torch.where(take0, torch.zeros((), dtype=acc.dtype,
+                                                 device=acc.device), acc)
+            if emit_idx:
+                idx = torch.where(take0, torch.full_like(idx, -1), idx)
+        return acc, idx
+
+    acc = torch.zeros((n, h, w, c), dtype=torch.float32,
+                      device=features.device)
+    for i in active:
+        warped = _warp_full(features, warps[:, i], init_image_size)
+        if masks_r is not None:
+            warped = warped * masks_r[:, i][..., None]
+        acc = acc + warped.float()
+    return (acc / t).to(features.dtype), None
+
+
+def _fold_windowed_place(features, warps, masks_r, init_image_size,
+                         windows, static_empty=(), emit_idx=True):
+    """Kernel-placed windowed max fold → (out, idx).
+
+    The body (part 0) is warped at full resolution and pre-masked; every
+    other active part only inside its window (one batched two-pass over
+    the parts); ``fold_place`` does the placement, mask multiply, max /
+    argmax and the zero pass. idx stores ORIGINAL part indices.
+    """
+    n, h, w, c = features.shape
+    t = warps.shape[1]
+    y0, x0 = windows
+    s_y, s_x = _kernel_window_sizes(h, w)
+    sel = list(_place_actives(t, static_empty))
+
+    body = _warp_full(features, warps[:, 0], init_image_size)
+    body = body * masks_r[:, 0][..., None]
+    ys, xs = y0[:, sel], x0[:, sel]
+    wins = _warp_win(features, warps[:, sel], ys, xs, s_y, s_x,
+                     init_image_size)
+    mwins = _slice_win(masks_r[:, sel], ys, xs, s_y, s_x).contiguous()
+    parts = torch.tensor(sel, dtype=ys.dtype, device=ys.device)
+    offs = torch.stack([ys, xs, parts.expand(n, -1)], dim=-1) \
+        .to(torch.int32).contiguous()
+    if static_empty:
+        # a statically-empty part contributes zero at EVERY pixel
+        zero_nb = torch.ones((n, h, w), dtype=torch.bool,
+                             device=features.device)
+    else:
+        zero_nb = (masks_r[:, 1:] == 0).any(dim=1)
+    return warp_fused.fold_place(body.contiguous(), wins.contiguous(), mwins,
+                                 zero_nb.contiguous(), offs, emit_idx)
+
+
+@dataclasses.dataclass
+class FoldPlan:
+    """One fold instance's inputs that depend only on the masks: the
+    resized masks and, when the windowed fold applies, its window starts."""
+    masks_r: torch.Tensor | None
+    windows: tuple[torch.Tensor, torch.Tensor] | None = None
+    fits: bool = False
+
+
+def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
+               dtype: torch.dtype, warp_skip: str = "mask",
+               warp_agg: str = "max", windowed: bool = False,
+               static_empty: tuple[int, ...] = ()) -> list[FoldPlan]:
+    """Plan the fold instances of one forward, one per (N, h, w, C) shape.
+
+    Resizes the masks for every instance, computes every windowed
+    instance's support windows, and resolves all 'does every non-body part
+    fit its window?' flags with ONE host sync.
+    """
+    plans, pending = [], []
+    t = warps.shape[1]
+    for n, h, w, c in shapes:
+        if warp_skip == "mask":
+            if masks is None:
+                raise ValueError("warp_skip='mask' requires part masks")
+            masks_r = resize_bilinear(masks.to(dtype), (h, w))
+        else:
+            masks_r = None
+        plan = FoldPlan(masks_r)
+        if _use_place_kernel(h, w, c, t, warp_agg, masks_r is not None,
+                             windowed, static_empty):
+            s_y, s_x = _kernel_window_sizes(h, w)
+            y0, x0, fits, _ = _support_windows(masks_r, s_y, s_x,
+                                               warp_fused.X_ALIGN)
+            plan.windows = (y0, x0)
+            pending.append((plan, fits[:, 1:].all()))
+        plans.append(plan)
+    if pending:
+        flags = torch.stack([f for _, f in pending]).tolist()
+        for (plan, _), ok in zip(pending, flags):
+            plan.fits = bool(ok)
+    return plans
+
+
+def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
+                           masks: torch.Tensor | None,
+                           init_image_size: tuple[int, int],
+                           warp_skip: str = "mask",
+                           warp_agg: str = "max",
+                           windowed: bool = False,
+                           static_empty: tuple[int, ...] = (),
+                           plan: FoldPlan | None = None) -> torch.Tensor:
+    """Warp + (mask) + aggregate over the T part transforms (forward).
+
+    Args:
+      features: (N, h, w, C) NHWC appearance skip.
+      warps: (N, T, 8) inverse pixel affines estimated at
+        ``init_image_size``, in the compute dtype.
+      masks: (N, T, H0, W0) part masks at image resolution (required for
+        ``warp_skip='mask'``, ignored otherwise).
+      warp_skip: 'mask' | 'full' | 'none' ('none' still warps, unmasked).
+      warp_agg: 'max' or 'avg'.
+      windowed: take the kernel-placed windowed fold where the shape
+        qualifies and every part's support fits its window.
+      static_empty: part indices that are empty for every input.
+      plan: this instance's ``plan_folds`` entry (computed here if None).
+
+    Returns:
+      (N, h, w, C) aggregated warped features.
+    """
+    if plan is None:
+        plan = plan_folds([tuple(features.shape)], warps, masks,
+                          features.dtype, warp_skip, warp_agg, windowed,
+                          static_empty)[0]
+    if plan.windows is not None:
+        if plan.fits:
+            out, _ = _fold_windowed_place(features, warps, plan.masks_r,
+                                          init_image_size, plan.windows,
+                                          static_empty, emit_idx=False)
+            return out
+        COUNTS["scan_fallback"] += 1
+    out, _ = _fold_scan(features, warps, plan.masks_r, init_image_size,
+                        warp_agg, static_empty, emit_idx=False)
+    return out

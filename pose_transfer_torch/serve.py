@@ -1,0 +1,215 @@
+"""Micro-batching inference server.
+
+Counterpart of ``pose_transfer_tpu/serve.py`` (single device; data-parallel
+serving comes with multi-GPU support):
+
+- **Static-shape micro-batching**: requests accumulate into fixed
+  ``batch_size`` batches; partial batches are padded by repeating the last
+  request, so the generator always sees one shape.
+- **Admission window**: the batcher dispatches when a batch fills or
+  ``max_wait_ms`` expires.
+- **Per-request futures** (``submit``) and a synchronous convenience
+  (``generate``); p50/p95 latency and throughput counters (``stats``).
+
+Request contract: a source image (uint8 HWC at the config's image size), its
+keypoints and the target keypoints, (K, 2) (y, x) with MISSING_VALUE=-1. The
+server runs the host-side estimation (``data.dataset.warp_fit``) and the
+eval step (heatmap/mask rasterization and the generator forward on the
+device).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from .data.dataset import collate, warp_fit
+from .train.engine import make_eval_step
+
+
+class PoseTransferServer:
+    """Persistent batched pose-transfer generator.
+
+    Args:
+      config: ``GANConfig`` (image_size/pose_dim/batch_size/...).
+      gen: the generator module (``build_models``).
+      max_wait_ms: admission window for partial batches.
+      queue_depth: max queued requests before ``submit`` blocks.
+      output_dtype: 'float32' (generator output in [-1, 1]) or 'uint8'
+        (deprocessed on the device before the host copy).
+      device: where the generator runs (default ``cuda``).
+    """
+
+    def __init__(self, config, gen, *, max_wait_ms: float = 5.0,
+                 queue_depth: int = 256, output_dtype: str = "float32",
+                 device=None):
+        if output_dtype not in ("float32", "uint8"):
+            raise ValueError(f"unknown output_dtype {output_dtype!r}")
+        self._output_dtype = output_dtype
+        self._config = config
+        self._eval = make_eval_step(config, gen, device)
+        self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        self._stop = threading.Event()
+        self._max_wait = max_wait_ms / 1e3
+        self._lock = threading.Lock()
+        self._latencies: list[float] = []
+        self._served = 0
+        self._batches = 0
+        self._t0 = time.time()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    @property
+    def config(self):
+        return self._config
+
+    # ------------------------------------------------------------- requests
+
+    def prepare_request(self, image: np.ndarray, kp_from: np.ndarray,
+                        kp_to: np.ndarray) -> dict:
+        """Host-side sample assembly: per-pair affine estimation, compact
+        layout. No ``image_to``: the preparer fills the blank target on the
+        device."""
+        cfg = self._config
+        image = np.ascontiguousarray(image, np.uint8)
+        if image.shape != (*cfg.image_size, 3):
+            raise ValueError(
+                f"image must be {(*cfg.image_size, 3)} uint8, "
+                f"got {image.shape}")
+        kp_from = np.asarray(kp_from, np.float32)
+        kp_to = np.asarray(kp_to, np.float32)
+        # malformed keypoints must fail HERE: past this point the sample is
+        # co-batched, where a bad shape poisons the whole batch's collate
+        for name, kp in (("kp_from", kp_from), ("kp_to", kp_to)):
+            if kp.shape != (cfg.pose_dim, 2):
+                raise ValueError(
+                    f"{name} must be {(cfg.pose_dim, 2)}, got {kp.shape}")
+        warps, polys, kinds = warp_fit(
+            kp_from, kp_to, cfg.pose_dim, cfg.image_size, cfg.warp_skip)
+        return {"image_from": image, "kp_from": kp_from, "kp_to": kp_to,
+                "warps": warps, "mask_polys": polys, "mask_kinds": kinds}
+
+    def submit(self, image: np.ndarray, kp_from: np.ndarray,
+               kp_to: np.ndarray) -> Future:
+        """Enqueue one request; resolves to the generated (H, W, 3) image —
+        float32 in [-1, 1], or uint8 when ``output_dtype='uint8'``."""
+        if self._stop.is_set():
+            raise RuntimeError("server is closed")
+        fut: Future = Future()
+        sample = self.prepare_request(image, kp_from, kp_to)
+        self._q.put((sample, fut, time.perf_counter()))
+        # close() may have drained the queue between the _stop check and
+        # the put — drain again so no QUEUED future is stranded
+        if self._stop.is_set():
+            self._fail_queued()
+        return fut
+
+    def generate(self, requests: list[tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]]) -> np.ndarray:
+        """Synchronous batch convenience: list of (image, kp_from, kp_to)."""
+        futs = [self.submit(*r) for r in requests]
+        return np.stack([f.result() for f in futs])
+
+    # ------------------------------------------------------------- batcher
+
+    def _loop(self):
+        bs = self._config.batch_size
+        while not self._stop.is_set():
+            try:
+                first = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            items = [first]
+            deadline = time.perf_counter() + self._max_wait
+            while len(items) < bs:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    items.append(self._q.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                self._run_batch(items)
+            except Exception as e:  # surface the failure on every future
+                for _, fut, _ in items:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    def _run_batch(self, items):
+        bs = self._config.batch_size
+        samples = [s for s, _, _ in items]
+        # static-shape pad: repeat the last sample; padded outputs dropped
+        samples = samples + [samples[-1]] * (bs - len(samples))
+        out, _ = self._eval(collate(samples))
+        out = out[:len(items)]
+        if self._output_dtype == "uint8":
+            out = ((out.float().clamp(-1.0, 1.0) + 1.0) * 127.5) \
+                .to(torch.uint8)
+        else:
+            out = out.float()
+        out_np = out.cpu().numpy()
+        done = time.perf_counter()
+        with self._lock:
+            self._served += len(items)
+            self._batches += 1
+            for _, _, t_in in items:
+                self._latencies.append(done - t_in)
+            del self._latencies[:-1024]  # keep a recent window
+        for (_, fut, _), img in zip(items, out_np):
+            if not fut.done():
+                fut.set_result(img)
+
+    # --------------------------------------------------------------- admin
+
+    def reset_stats(self):
+        """Zero the counters (after warm-up, so first-call costs don't
+        pollute the latency percentiles)."""
+        with self._lock:
+            self._latencies.clear()
+            self._served = 0
+            self._batches = 0
+            self._t0 = time.time()
+
+    def stats(self) -> dict:
+        with self._lock:
+            lat = sorted(self._latencies)
+            served, batches = self._served, self._batches
+        pct = lambda p: (lat[min(int(p * len(lat)), len(lat) - 1)]  # noqa
+                         if lat else 0.0)
+        elapsed = max(time.time() - self._t0, 1e-9)
+        return {
+            "served": served,
+            "batches": batches,
+            "mean_batch_fill": served / batches if batches else 0.0,
+            "latency_p50_ms": round(pct(0.50) * 1e3, 2),
+            "latency_p95_ms": round(pct(0.95) * 1e3, 2),
+            "images_per_sec": round(served / elapsed, 2),
+        }
+
+    def _fail_queued(self):
+        """Fail every queued-but-undispatched request (only safe once
+        ``_stop`` is set — the batcher stops dequeuing then)."""
+        while True:
+            try:
+                _, fut, _ = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if not fut.done():
+                fut.set_exception(RuntimeError("server closed"))
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self._fail_queued()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -26,3 +26,8 @@ assert jax.devices()[0].platform == "cpu"
 from pose_transfer_tpu.utils.cache import enable_compilation_cache  # noqa: E402
 
 enable_compilation_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
