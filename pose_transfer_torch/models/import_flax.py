@@ -1,9 +1,10 @@
-"""Carry the JAX package's generator weights into the port.
+"""Carry the JAX package's weights into the port.
 
-``generator_state_dict_from_flax`` takes the params of
-``pose_transfer_tpu.models.DeformableGenerator`` as nested dicts of numpy
-arrays (``{"params": {...}}`` or the inner dict) and returns the port's
-state_dict, under the reference PyTorch names. It is the inverse of
+``generator_state_dict_from_flax`` and ``discriminator_state_dict_from_flax``
+take the params of ``pose_transfer_tpu.models.DeformableGenerator`` /
+``Discriminator`` as nested dicts of numpy arrays (``{"params": {...}}`` or
+the inner dict) and return the port's state_dicts, under the reference
+PyTorch names. They are the inverse of
 ``pose_transfer_tpu/models/import_torch.py``:
   conv kernel HWIO → OIHW
   transposed-conv kernel: undo the spatial flip, then
@@ -71,4 +72,22 @@ def generator_state_dict_from_flax(params: dict) -> dict:
     _encoder(p["encoder_app"], "encoder_app", sd)
     _encoder(p["encoder_pose"], "encoder_pose", sd)
     _decoder(p["decoder"], "decoder", sd)
+    return sd
+
+
+def discriminator_state_dict_from_flax(params: dict) -> dict:
+    """Flax Discriminator params → the port's discriminator state_dict
+    (``net.0`` the first conv, ``net.{i}`` the Blocks)."""
+    p = params.get("params", params)
+    sd: dict = {"net.0.weight": _conv(p["Conv_0"]["kernel"]),
+                "net.0.bias": _t(p["Conv_0"]["bias"])}
+    i = 0
+    while f"Block_{i}" in p:
+        block = p[f"Block_{i}"]
+        sd[f"net.{i + 1}.net.1.weight"] = _conv(block["Conv_0"]["kernel"])
+        if "VolumeInstanceNorm_0" in block:
+            norm = block["VolumeInstanceNorm_0"]
+            sd[f"net.{i + 1}.net.2.weight"] = _scalar(norm["scale"])
+            sd[f"net.{i + 1}.net.2.bias"] = _scalar(norm["bias"])
+        i += 1
     return sd

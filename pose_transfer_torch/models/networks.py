@@ -1,7 +1,8 @@
-"""The deformable U-Net generator (PyTorch modules).
+"""The deformable U-Net generator and the patch discriminator (PyTorch
+modules).
 
-Counterpart of ``Block``, ``Encoder``, ``Decoder`` and
-``DeformableGenerator`` in ``pose_transfer_tpu/models/networks.py``.
+Counterpart of ``Block``, ``Encoder``, ``Decoder``, ``DeformableGenerator``
+and ``Discriminator`` in ``pose_transfer_tpu/models/networks.py``.
 
 Module attribute names reproduce the reference PyTorch state_dict names
 (the keys ``pose_transfer_tpu/models/import_torch.py`` maps), so a
@@ -12,6 +13,8 @@ reference checkpoint loads with ``load_state_dict`` as it is:
   decoder.net.{i}.net.1.weight                Block transposed conv
   decoder.net.{i}.net.3.{weight,bias}         Block volume norm
   decoder.net.{n}.{weight,bias}               final k3 conv
+  (discriminator) net.0.{weight,bias}         k4s2 VALID conv
+  (discriminator) net.{i}.net.{1,2}.*         Block conv / norm (i ≥ 1)
 
 Parameters are float32; ``dtype`` is the compute dtype (convolutions cast
 their weights to it, the norm computes in f32 and rounds back), as flax's
@@ -78,9 +81,31 @@ class VolumeInstanceNorm(nn.Module):
         return volume_instance_norm(x, self.weight, self.bias, self.eps)
 
 
+class ChannelDropout(nn.Module):
+    """Dropout2d: whole (sample, channel) planes dropped with probability
+    ``p``, kept ones scaled by 1/(1-p) — flax's ``Dropout(p,
+    broadcast_dims=(1, 2))``. In training mode it draws from
+    ``generator`` (the train step hands it the state's generator; None
+    means the global one). No parameters: state_dicts are unchanged."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):          # x: NCHW
+        if not self.training:
+            return x
+        n, c = x.shape[:2]
+        keep = torch.rand((n, c, 1, 1), generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Block(nn.Module):
     """Down: LeakyReLU(0.2) → k4s2p1 conv → norm.
-    Up: ReLU → k4s2 transposed conv (+crop 1) → norm → Dropout2d(0.5).
+    Up: ReLU → k4s2 transposed conv (+crop 1) → norm → channel dropout 0.5.
     ``net`` indices follow the reference's Sequential."""
 
     def __init__(self, in_ch: int, out_ch: int, down: bool = True,
@@ -98,7 +123,7 @@ class Block(nn.Module):
         if bn:
             layers.append(VolumeInstanceNorm(device=device))
         if dropout:
-            layers.append(nn.Dropout2d(0.5))
+            layers.append(ChannelDropout(0.5))
         self.net = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -219,6 +244,33 @@ class DeformableGenerator(nn.Module):
                 sk_app = nchw(warped)
             skips.append(torch.cat([sk_app, sk_pose], dim=1))
         return self.decoder(skips).permute(0, 2, 3, 1)
+
+
+class Discriminator(nn.Module):
+    """Patch discriminator → (N, patches) probabilities.
+
+    k4s2 VALID conv (with bias), then down Blocks of 128, 256, 512 and 1
+    filters (no norm on the last; ``check_mode``: 128, 256 and 1). NHWC in,
+    computed in ``dtype``; the sigmoid runs in f32 (a bf16 sigmoid
+    saturates to exactly 0 or 1 and degenerates the log losses).
+    """
+
+    def __init__(self, in_ch: int, check_mode: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        widths = (128, 256) if check_mode else (128, 256, 512)
+        layers = [Conv2d(in_ch, 64, 4, 2, 0, device=device)]
+        prev = 64
+        for wdt in widths:
+            layers.append(Block(prev, wdt, device=device))
+            prev = wdt
+        layers.append(Block(prev, 1, bn=False, device=device))
+        self.net = nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.net(x.to(self.dtype).permute(0, 3, 1, 2))
+        return torch.sigmoid(x.float()).reshape(x.shape[0], -1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

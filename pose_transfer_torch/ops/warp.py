@@ -1,10 +1,10 @@
 """Multi-transform affine feature warping and the max fold (the deformable op).
 
-Counterpart of the forward, ``backend='matmul'`` path of
-``pose_transfer_tpu/ops/warp.py``. For each of the T part transforms the
-appearance skip is warped by an inverse pixel-space affine, multiplied by
-the part's mask (resized to the feature resolution), and the T results are
-folded by max (or mean).
+Counterpart of the ``backend='matmul'`` path of
+``pose_transfer_tpu/ops/warp.py``, forward and backward. For each of the T
+part transforms the appearance skip is warped by an inverse pixel-space
+affine, multiplied by the part's mask (resized to the feature resolution),
+and the T results are folded by max (or mean).
 
 The warp is the two-pass (Catmull-Smith) resample of the JAX package as two
 banded-matrix products — NOT ``grid_sample``: for a transform with
@@ -22,6 +22,12 @@ The windowed fold needs every non-body part's support to fit its window.
 The JAX package decides that with one ``lax.cond`` per fold instance; here
 ``plan_folds`` decides it for all fold instances of a forward with one host
 sync.
+
+The backward (``WarpFold``, the counterpart of ``warp_fold_matmul``'s custom
+VJP) saves no feature maps: the warp is linear in the features, so it
+routes the cotangent through the argmax and the transposed two-pass warps,
+rebuilding the banded weights. The windowed branch routes with the
+``fold_route`` kernel; warps and masks get no gradient (host data).
 
 Transforms are (T, 8) row-major first-8 of a 3×3 matrix acting on (x, y, 1),
 estimated at ``init_image_size``; translations are rescaled per feature
@@ -148,6 +154,44 @@ def _warp_full(features: torch.Tensor, warps: torch.Tensor,
     zero = torch.zeros((n, 1), dtype=torch.int64, device=features.device)
     return _warp_win(features, warps[:, None], zero, zero, h, w,
                      init_image_size)[:, 0]
+
+
+def _warp_win_t(g_wins: torch.Tensor, warps: torch.Tensor,
+                y0: torch.Tensor, x0: torch.Tensor, h: int, w: int,
+                init_image_size: tuple[int, int],
+                joint: bool) -> torch.Tensor:
+    """Linear transpose of ``_warp_win``: (N, P, S_y, S_x, C) window
+    cotangents → (N, H, W, C) feature gradient, summed over the parts.
+
+    Same banded weights, contracted on the other sides, passes in reverse
+    order. Pass 1 rounds to the cotangents' dtype (f32 accumulate, one
+    rounding). ``joint``: pass 2 contracts the (part, window row) axes
+    together and returns f32 — JAX's ``_warp_batch_t_win_joint``; its
+    operands are upcast, which is exact for bf16 values, so the sum is the
+    f32 accumulation of the bf16 products. Otherwise pass 2 rounds to the
+    cotangents' dtype too (``warp_feature_matmul_t``).
+    """
+    n, p, s_y, s_x, c = g_wins.shape
+    wy, wx = _two_pass_weights(warps, h, w, init_image_size, g_wins.dtype,
+                               y0, x0, s_y, s_x)
+    # pass 1: dtmp[n, p, o, x, c] = Σ_a wx[n, p, o, a, x]·g[n, p, o, a, c]
+    dtmp = torch.matmul(wx.transpose(-1, -2), g_wins)
+    dtmp = dtmp.permute(0, 3, 1, 2, 4).reshape(n, w, p * s_y, c)
+    # pass 2: df[n, y, x, c] = Σ_{p, o} wy[n, x, p, o, y]·dtmp[n, p, o, x, c]
+    wyt = wy.reshape(n, w, p * s_y, h).transpose(-1, -2)
+    if joint:
+        wyt, dtmp = wyt.float(), dtmp.float()
+    return torch.matmul(wyt, dtmp).permute(0, 2, 1, 3)
+
+
+def _warp_full_t(g: torch.Tensor, warps: torch.Tensor,
+                 init_image_size: tuple[int, int]) -> torch.Tensor:
+    """Transpose of ``_warp_full`` by per-sample (N, 8) transforms, both
+    passes rounded to g's dtype."""
+    n, h, w, _ = g.shape
+    zero = torch.zeros((n, 1), dtype=torch.int64, device=g.device)
+    return _warp_win_t(g[:, None], warps[:, None], zero, zero, h, w,
+                       init_image_size, joint=False)
 
 
 def _support_windows(masks_r: torch.Tensor, s_y: int, s_x: int,
@@ -283,6 +327,21 @@ def _fold_scan(features, warps, masks_r, init_image_size, warp_agg,
     return (acc / t).to(features.dtype), None
 
 
+def _place_args(masks_r, windows, h, w, t, static_empty):
+    """The placed parts' shared inputs of ``fold_place`` and
+    ``fold_route``: (sel, mwins, offs) — the active part indices, their
+    (N, P, S_y, S_x) mask windows and (N, P, 3) int32 [y0, x0, part]."""
+    y0, x0 = windows
+    s_y, s_x = _kernel_window_sizes(h, w)
+    sel = list(_place_actives(t, static_empty))
+    ys, xs = y0[:, sel], x0[:, sel]
+    mwins = _slice_win(masks_r[:, sel], ys, xs, s_y, s_x).contiguous()
+    parts = torch.tensor(sel, dtype=ys.dtype, device=ys.device)
+    offs = torch.stack([ys, xs, parts.expand(ys.shape[0], -1)], dim=-1) \
+        .to(torch.int32).contiguous()
+    return sel, mwins, offs
+
+
 def _fold_windowed_place(features, warps, masks_r, init_image_size,
                          windows, static_empty=(), emit_idx=True):
     """Kernel-placed windowed max fold → (out, idx).
@@ -296,17 +355,12 @@ def _fold_windowed_place(features, warps, masks_r, init_image_size,
     t = warps.shape[1]
     y0, x0 = windows
     s_y, s_x = _kernel_window_sizes(h, w)
-    sel = list(_place_actives(t, static_empty))
+    sel, mwins, offs = _place_args(masks_r, windows, h, w, t, static_empty)
 
     body = _warp_full(features, warps[:, 0], init_image_size)
     body = body * masks_r[:, 0][..., None]
-    ys, xs = y0[:, sel], x0[:, sel]
-    wins = _warp_win(features, warps[:, sel], ys, xs, s_y, s_x,
-                     init_image_size)
-    mwins = _slice_win(masks_r[:, sel], ys, xs, s_y, s_x).contiguous()
-    parts = torch.tensor(sel, dtype=ys.dtype, device=ys.device)
-    offs = torch.stack([ys, xs, parts.expand(n, -1)], dim=-1) \
-        .to(torch.int32).contiguous()
+    wins = _warp_win(features, warps[:, sel], y0[:, sel], x0[:, sel], s_y,
+                     s_x, init_image_size)
     if static_empty:
         # a statically-empty part contributes zero at EVERY pixel
         zero_nb = torch.ones((n, h, w), dtype=torch.bool,
@@ -315,6 +369,47 @@ def _fold_windowed_place(features, warps, masks_r, init_image_size,
         zero_nb = (masks_r[:, 1:] == 0).any(dim=1)
     return warp_fused.fold_place(body.contiguous(), wins.contiguous(), mwins,
                                  zero_nb.contiguous(), offs, emit_idx)
+
+
+def _fold_windowed_place_bwd(g, warps, masks_r, idx, init_image_size,
+                             windows, static_empty=()):
+    """Backward of ``_fold_windowed_place`` → f32 feature gradient.
+
+    The mask windows and offsets are rebuilt from the saved masks and
+    window starts (small); ``fold_route`` routes the cotangent to the
+    winning part (times its mask) as window stacks and a body route; the
+    body route goes through the full-map transposed warp (rounded to g's
+    dtype, then f32), the windows through the joint transposed warp over
+    the parts (f32).
+    """
+    _, h, w, _ = g.shape
+    y0, x0 = windows
+    sel, mwins, offs = _place_args(masks_r, windows, h, w, warps.shape[1],
+                                   static_empty)
+    gwins, gbody = warp_fused.fold_route(g, idx, masks_r[:, 0].contiguous(),
+                                         mwins, offs)
+    df0 = _warp_full_t(gbody, warps[:, 0], init_image_size).float()
+    dfp = _warp_win_t(gwins, warps[:, sel], y0[:, sel], x0[:, sel], h, w,
+                      init_image_size, joint=True)
+    return df0 + dfp
+
+
+def _fold_scan_bwd(g, warps, masks_r, idx, init_image_size, warp_agg,
+                   static_empty=()):
+    """Backward of ``_fold_scan`` → f32 feature gradient: each active
+    part's cotangent (g where idx is its COMPACTED position for 'max', g/T
+    for 'avg'), times its mask, transpose-warped in g's dtype and summed in
+    f32."""
+    t = warps.shape[1]
+    active = [i for i in range(t) if i not in static_empty]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    df = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    for k, i in enumerate(active):
+        gm = torch.where(idx == k, g, zero) if warp_agg == "max" else g / t
+        if masks_r is not None:
+            gm = gm * masks_r[:, i][..., None]
+        df += _warp_full_t(gm, warps[:, i], init_image_size).float()
+    return df
 
 
 @dataclasses.dataclass
@@ -361,6 +456,60 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
     return plans
 
 
+def _fold(features, warps, plan, init_image_size, warp_agg, static_empty,
+          emit_idx):
+    """The fold on the branch ``plan`` chose → (out, idx, windowed)."""
+    if plan.windows is not None:
+        if plan.fits:
+            out, idx = _fold_windowed_place(features, warps, plan.masks_r,
+                                            init_image_size, plan.windows,
+                                            static_empty, emit_idx)
+            return out, idx, True
+        COUNTS["scan_fallback"] += 1
+    out, idx = _fold_scan(features, warps, plan.masks_r, init_image_size,
+                          warp_agg, static_empty, emit_idx)
+    return out, idx, False
+
+
+class WarpFold(torch.autograd.Function):
+    """The fold as an autograd Function: forward on the branch its
+    ``FoldPlan`` chose, with the argmax; backward routes the cotangent
+    through it (JAX: ``warp_fold_matmul``'s ``_fold_fwd``/``_fold_bwd``).
+
+    Saved: warps, resized masks, the argmax (int8, feature-shaped) and the
+    window starts — no feature maps, no banded weights. Gradient: features
+    only; warps and masks are host data and get none.
+    """
+
+    @staticmethod
+    def forward(ctx, features, warps, plan, init_image_size, warp_agg,
+                static_empty):
+        out, idx, windowed = _fold(features, warps, plan, init_image_size,
+                                   warp_agg, static_empty, emit_idx=True)
+        y0, x0 = plan.windows if windowed else (None, None)
+        ctx.save_for_backward(warps, plan.masks_r, idx, y0, x0)
+        ctx.windowed = windowed
+        ctx.args = (init_image_size, warp_agg, static_empty)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        warps, masks_r, idx, y0, x0 = ctx.saved_tensors
+        init_image_size, warp_agg, static_empty = ctx.args
+        # g reaches here through NCHW views and channel slices: the router
+        # kernel takes a contiguous, 16-byte aligned map
+        if not g.is_contiguous() or g.data_ptr() % 16:
+            g = g.clone(memory_format=torch.contiguous_format)
+        if ctx.windowed:
+            df = _fold_windowed_place_bwd(g, warps, masks_r, idx,
+                                          init_image_size, (y0, x0),
+                                          static_empty)
+        else:
+            df = _fold_scan_bwd(g, warps, masks_r, idx, init_image_size,
+                                warp_agg, static_empty)
+        return df.to(g.dtype), None, None, None, None, None
+
+
 def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
                            masks: torch.Tensor | None,
                            init_image_size: tuple[int, int],
@@ -369,7 +518,11 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
                            windowed: bool = False,
                            static_empty: tuple[int, ...] = (),
                            plan: FoldPlan | None = None) -> torch.Tensor:
-    """Warp + (mask) + aggregate over the T part transforms (forward).
+    """Warp + (mask) + aggregate over the T part transforms.
+
+    Differentiable in ``features`` (``WarpFold``) when grad mode is on and
+    they require grad; otherwise the forward alone runs, without the
+    argmax (serving and the discriminator phase's generator forward).
 
     Args:
       features: (N, h, w, C) NHWC appearance skip.
@@ -391,13 +544,8 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
         plan = plan_folds([tuple(features.shape)], warps, masks,
                           features.dtype, warp_skip, warp_agg, windowed,
                           static_empty)[0]
-    if plan.windows is not None:
-        if plan.fits:
-            out, _ = _fold_windowed_place(features, warps, plan.masks_r,
-                                          init_image_size, plan.windows,
-                                          static_empty, emit_idx=False)
-            return out
-        COUNTS["scan_fallback"] += 1
-    out, _ = _fold_scan(features, warps, plan.masks_r, init_image_size,
-                        warp_agg, static_empty, emit_idx=False)
-    return out
+    if torch.is_grad_enabled() and features.requires_grad:
+        return WarpFold.apply(features, warps, plan, init_image_size,
+                              warp_agg, static_empty)
+    return _fold(features, warps, plan, init_image_size, warp_agg,
+                 static_empty, emit_idx=False)[0]

@@ -1,21 +1,30 @@
-"""The fold's window-placement kernel: ``fold_place``.
+"""The fold's window kernels: ``fold_place`` (forward) and ``fold_route``
+(backward).
 
-Counterpart of ``pose_transfer_tpu/ops/warp_fused.py::fold_place``. The
-deformable warp fold is max_t(warp_t(features)·mask_t); the windowed fold
-computes each non-body part's warp only inside its mask's bounding-box
-window, and ``fold_place`` places those windows into the running max (and
-argmax), multiplies in the mask windows and applies the final
-zero-contribution pass.
+Counterpart of ``pose_transfer_tpu/ops/warp_fused.py::fold_place`` and
+``::fold_route``. The deformable warp fold is max_t(warp_t(features)·mask_t);
+the windowed fold computes each non-body part's warp only inside its mask's
+bounding-box window, and ``fold_place`` places those windows into the
+running max (and argmax), multiplies in the mask windows and applies the
+final zero-contribution pass. ``fold_route`` is its backward router: it
+sends the cotangent of every pixel to the part that won it (the argmax),
+times that part's mask, as per-part window cotangents and a body route.
 
-Three pieces, as for every kernel of the port:
-- ``fold_place``: the wrapper. A CPU tensor takes the plain version; a CUDA
-  tensor launches the hand-written kernel ``csrc/fold_place.cu`` (built by
+Three pieces for each kernel, as for every kernel of the port:
+- the wrapper (``fold_place``, ``fold_route``). A CPU tensor takes the
+  plain version; a CUDA tensor launches the hand-written kernel
+  (``csrc/fold_place.cu``, ``csrc/fold_route.cu``, built by
   ``pose_transfer_torch._build``) or raises. No path falls back from the
-  kernel to the plain version.
-- ``fold_place_reference``: the plain PyTorch version, same semantics.
-- ``LAUNCHES``: how many times the CUDA kernel was launched.
+  kernel to the plain version. Neither output carries a gradient, so both
+  wrappers refuse, under grad mode, an input that requires grad: the fold
+  is differentiated by ``ops.warp.WarpFold``, which calls them with grad
+  mode off.
+- the plain PyTorch version (``*_reference``), same semantics.
+- ``LAUNCHES``: how many times each CUDA kernel was launched
+  (``fold_place_idx`` counts the ``fold_place`` launches that emitted the
+  argmax, the ones a backward routes through).
 
-Differences from the TPU kernel: the argmax is int8 (the TPU kept it in
+Differences from the TPU kernels: the argmax is int8 (the TPU kept it in
 bf16 only because Mosaic scalarizes int8 selects), ``zero_nb`` is bool, and
 there is no VMEM budget — only the shape rules of ``supported``.
 """
@@ -32,7 +41,7 @@ import torch
 X_ALIGN = 16
 RCH = 8          # window rows must be a multiple of this
 
-LAUNCHES = {"fold_place": 0}
+LAUNCHES = {"fold_place": 0, "fold_place_idx": 0, "fold_route": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,7 +83,38 @@ def fold_place_reference(body: torch.Tensor, wins: torch.Tensor,
     return out, idx
 
 
-def _check(body, wins, mwins, zero_nb, offs):
+def fold_route_reference(g: torch.Tensor, idx: torch.Tensor,
+                         mask0: torch.Tensor, mwins: torch.Tensor,
+                         offs: torch.Tensor):
+    """Plain PyTorch version of ``fold_route`` (same arguments/results)."""
+    n = g.shape[0]
+    sy, sx = mwins.shape[2:]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    # select in g's dtype (+0 where deselected), multiply in f32, round once
+    gbody = (torch.where(idx == 0, g, zero).float()
+             * mask0.float()[..., None]).to(g.dtype)
+    offs = offs.long()
+    rows = offs[..., 0, None] + torch.arange(sy, device=g.device)
+    cols = offs[..., 1, None] + torch.arange(sx, device=g.device)
+    ni = torch.arange(n, device=g.device)[:, None, None, None]
+    at = (ni, rows[..., :, None], cols[..., None, :])   # (N, P, SY, SX)
+    sel = idx[at] == offs[..., 2, None, None, None].to(idx.dtype)
+    gwins = (torch.where(sel, g[at], zero).float()
+             * mwins.float()[..., None]).to(g.dtype)
+    return gwins, gbody
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    """Raise on an input that requires grad under grad mode: the kernels'
+    outputs carry no gradient, so autograd would silently stop there."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the output carries no "
+            "gradient; differentiate the fold through "
+            "ops.warp.affine_transform_layer (WarpFold)")
+
+
+def _check_place(body, wins, mwins, zero_nb, offs):
     n, h, w, c = body.shape
     if body.dtype not in _DTYPE_CODES:
         raise TypeError(f"fold_place: unsupported dtype {body.dtype}")
@@ -95,17 +135,75 @@ def _check(body, wins, mwins, zero_nb, offs):
     return n, h, w, c, p, sy, sx
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    """The built ``csrc/fold_place.cu`` with its C signatures declared."""
+def _check_route(g, idx, mask0, mwins, offs):
+    if g.ndim != 4:
+        raise ValueError(f"fold_route: g must be (N, H, W, C), got "
+                         f"{tuple(g.shape)}")
+    n, h, w, c = g.shape
+    if g.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fold_route: unsupported dtype {g.dtype}")
+    if mask0.dtype != g.dtype or mwins.dtype != g.dtype:
+        raise TypeError("fold_route: g, mask0 and mwins must share a dtype")
+    if idx.dtype != torch.int8 or offs.dtype != torch.int32:
+        raise TypeError("fold_route: idx must be int8 and offs int32")
+    if mwins.ndim != 4 or mwins.shape[0] != n:
+        raise ValueError(f"fold_route: mwins {tuple(mwins.shape)} does not "
+                         f"match g {tuple(g.shape)}")
+    p, sy, sx = mwins.shape[1:]
+    if idx.shape != g.shape or tuple(mask0.shape) != (n, h, w) \
+            or tuple(offs.shape) != (n, p, 3):
+        raise ValueError("fold_route: idx/mask0/offs shapes do not match")
+    if sy > h or sx > w:
+        raise ValueError("fold_route: window larger than the feature map")
+    return n, h, w, c, p, sy, sx
+
+
+def _on_card(name, tensors, c, p):
+    """Whether to launch the kernel (CUDA) or run the plain version (CPU);
+    raises on anything the kernel does not take."""
+    first = tensors[0]
+    if first.device.type == "cpu":
+        if any(t.device.type != "cpu" for t in tensors):
+            raise ValueError(f"{name}: tensors on different devices")
+        return False
+    if first.device.type != "cuda" \
+            or any(t.device != first.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    vec = 16 // first.element_size()
+    if c % vec or not 1 <= p <= 32:
+        raise ValueError(f"{name}: needs C % {vec} == 0 and 1 <= P <= 32, "
+                         f"got C={c}, P={p}")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    return True
+
+
+def _kernel_lib(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    """The built ``csrc/<name>.cu`` with its C signatures declared: the
+    entry point ``name(ptrs..., ints..., stream)`` and
+    ``<name>_error_string``."""
     from .. import _build
-    lib = _build.load("fold_place")
-    if lib.fold_place.argtypes is None:
-        lib.fold_place.restype = ctypes.c_int
-        lib.fold_place.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.fold_place_error_string.restype = ctypes.c_char_p
-        lib.fold_place_error_string.argtypes = [ctypes.c_int]
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_void_p]
+        err = getattr(lib, f"{name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
     return lib
+
+
+def _launch(name: str, lib: ctypes.CDLL, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
 def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
@@ -129,39 +227,58 @@ def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
       fold with the zero pass applied; idx holds the winning part's index,
       0 for the body, -1 where the zero pass won.
     """
-    n, h, w, c, p, sy, sx = _check(body, wins, mwins, zero_nb, offs)
+    n, h, w, c, p, sy, sx = _check_place(body, wins, mwins, zero_nb, offs)
     tensors = (body, wins, mwins, zero_nb, offs)
-    if body.device.type == "cpu":
-        if any(t.device.type != "cpu" for t in tensors):
-            raise ValueError("fold_place: tensors on different devices")
+    _refuse_grad("fold_place", tensors)
+    if not _on_card("fold_place", tensors, c, p):
         return fold_place_reference(body, wins, mwins, zero_nb, offs,
                                     emit_idx)
-    if body.device.type != "cuda" \
-            or any(t.device != body.device for t in tensors):
-        raise ValueError("fold_place: all tensors must be on one CUDA device")
-    vec = 16 // body.element_size()
-    if c % vec or p > 32:
-        raise ValueError(f"fold_place: needs C % {vec} == 0 and P <= 32, "
-                         f"got C={c}, P={p}")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("fold_place: tensors must be contiguous")
-    if body.data_ptr() % 16 or wins.data_ptr() % 16:
-        raise ValueError("fold_place: body/wins must be 16-byte aligned")
-
-    lib = _kernel_lib()
+    lib = _kernel_lib("fold_place", 7, 9)
     out = torch.empty_like(body)
     idx = torch.empty(body.shape, dtype=torch.int8, device=body.device) \
         if emit_idx else None
-    with torch.cuda.device(body.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fold_place(
+    _launch("fold_place", lib, body.device,
             body.data_ptr(), wins.data_ptr(), mwins.data_ptr(),
             zero_nb.data_ptr(), offs.data_ptr(), out.data_ptr(),
             idx.data_ptr() if emit_idx else None,
-            n, h, w, c, p, sy, sx, _DTYPE_CODES[body.dtype], int(emit_idx),
-            stream)
-    if rc != 0:
-        raise RuntimeError("fold_place kernel launch failed: "
-                           + lib.fold_place_error_string(rc).decode())
+            n, h, w, c, p, sy, sx, _DTYPE_CODES[body.dtype], int(emit_idx))
     LAUNCHES["fold_place"] += 1
+    if emit_idx:
+        LAUNCHES["fold_place_idx"] += 1
     return out, idx
+
+
+def fold_route(g: torch.Tensor, idx: torch.Tensor, mask0: torch.Tensor,
+               mwins: torch.Tensor, offs: torch.Tensor):
+    """Backward router of ``fold_place``: per-part window cotangents and
+    the body route.
+
+    Args:
+      g: (N, H, W, C) fold cotangent, float32 or bfloat16.
+      idx: (N, H, W, C) int8 argmax from ``fold_place`` (original part
+        indices; -1 entries route to no part).
+      mask0: (N, H, W) resized body mask (multiplies the body route).
+      mwins: (N, P, SY, SX) resized-mask windows of the placed parts.
+      offs: (N, P, 3) int32 [y0, x0, part_index], as for ``fold_place``;
+        windows in bounds.
+
+    Returns:
+      gwins: (N, P, SY, SX, C) g·mwins inside each part's window where idx
+        equals the part's index, +0 (times the mask) elsewhere;
+      gbody: (N, H, W, C) g·mask0 where idx == 0, else +0. Both in g's
+      dtype, multiplied in f32 and rounded once.
+    """
+    n, h, w, c, p, sy, sx = _check_route(g, idx, mask0, mwins, offs)
+    tensors = (g, idx, mask0, mwins, offs)
+    _refuse_grad("fold_route", tensors)
+    if not _on_card("fold_route", tensors, c, p):
+        return fold_route_reference(g, idx, mask0, mwins, offs)
+    lib = _kernel_lib("fold_route", 7, 8)
+    gwins = torch.empty((n, p, sy, sx, c), dtype=g.dtype, device=g.device)
+    gbody = torch.empty_like(g)
+    _launch("fold_route", lib, g.device,
+            g.data_ptr(), idx.data_ptr(), mask0.data_ptr(), mwins.data_ptr(),
+            offs.data_ptr(), gwins.data_ptr(), gbody.data_ptr(),
+            n, h, w, c, p, sy, sx, _DTYPE_CODES[g.dtype])
+    LAUNCHES["fold_route"] += 1
+    return gwins, gbody

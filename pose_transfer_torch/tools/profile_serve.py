@@ -48,6 +48,8 @@ def _category(name: str) -> str:
     n = name.lower()
     if "fold_place" in n:
         return "fold_place"
+    if "fold_route" in n:
+        return "fold_route"
     if "conv" in n or "dgrad" in n or "wgrad" in n or "fprop" in n:
         return "conv"
     if "gemm" in n or "xmma" in n or "cutlass" in n or "nvjet" in n:

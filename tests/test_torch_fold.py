@@ -4,14 +4,16 @@
 ``fold_place`` in interpret mode, bitwise; the fold paths and
 ``affine_transform_layer`` against JAX's ``warp_fold_matmul`` /
 ``affine_transform_layer`` with ``windowed=True, place_impl='kernel'`` (the
-kernel-placed windowed fold, in interpret mode on the CPU). Inputs come
-from numpy seeds and are fed to both packages.
+kernel-placed windowed fold, in interpret mode on the CPU), forward and
+gradient (torch autograd against ``jax.vjp``). Inputs come from numpy seeds
+and are fed to both packages.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pose_transfer_tpu.ops import warp as jwarp
@@ -182,6 +184,80 @@ def test_affine_transform_layer_matches_jax(case):
     np.testing.assert_allclose(
         out, _jax_layer(f, warps, masks, se, skip, agg), atol=5e-5)
     assert twarp.COUNTS["scan_fallback"] - before == (case == "fallback")
+
+
+def _fold_grads(case):
+    """(port gradient, JAX gradient, port scan fallbacks, fold_route calls)
+    of <fold, cotangent> with respect to the features."""
+    fit = case != "fallback"
+    f, warps, masks = _fold_inputs(fit)
+    se = (3,) if case == "static_empty" else ()
+    agg = "avg" if case == "avg" else "max"
+    g = np.random.RandomState(5).randn(*f.shape).astype(np.float32)
+
+    def jfold(ff):
+        return jwarp.affine_transform_layer(
+            ff, jnp.asarray(warps), jnp.asarray(masks), IMG, "mask", agg,
+            "matmul", windowed=True, static_empty=se, place_impl="kernel")
+    _, vjp = jax.vjp(jfold, jnp.asarray(f))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+
+    ft = torch.tensor(f, requires_grad=True)
+    gt = torch.tensor(g)
+    if case == "permuted":
+        # the cotangent as the generator hands it over: an NHWC view of an
+        # NCHW tensor
+        gt = torch.tensor(np.ascontiguousarray(g.transpose(0, 3, 1, 2))) \
+            .permute(0, 2, 3, 1)
+        assert not gt.is_contiguous()
+    before = twarp.COUNTS["scan_fallback"]
+    routes = []
+    real = twf.fold_route
+    twf.fold_route = lambda *a: routes.append(a[0].shape) or real(*a)
+    try:
+        out = twarp.affine_transform_layer(
+            ft, torch.tensor(warps), torch.tensor(masks), IMG, "mask", agg,
+            windowed=True, static_empty=se)
+        out.backward(gt)
+    finally:
+        twf.fold_route = real
+    return (ft.grad.numpy(), ref, twarp.COUNTS["scan_fallback"] - before,
+            len(routes))
+
+
+@pytest.mark.parametrize("case", ["windowed", "fallback", "static_empty",
+                                  "permuted", "avg"])
+def test_fold_gradient_matches_jax(case):
+    """The fold's gradient: the windowed branch (routed by fold_route), the
+    scan fallback of a sprawling mask, static-empty parts, a permuted
+    non-contiguous cotangent and the mean fold (scan only)."""
+    got, ref, fallbacks, routes = _fold_grads(case)
+    # f32; the joint transposed contraction sums (part, window row) in
+    # another order than XLA's: the tolerance of tests/test_warp_place.py
+    np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0)
+    assert np.abs(ref).max() > 0.1
+    assert fallbacks == (case == "fallback")
+    assert routes == (case not in ("fallback", "avg"))
+
+
+def test_fold_forward_without_grad_emits_no_idx(monkeypatch):
+    """Under no_grad (and for features that need no gradient) the fold runs
+    its forward alone: fold_place without the argmax, no autograd node."""
+    f, warps, masks = (torch.tensor(a) for a in _fold_inputs(True))
+    seen = []
+    real = twf.fold_place
+    monkeypatch.setattr(twf, "fold_place",
+                        lambda *a: seen.append(a[-1]) or real(*a))
+    ft = f.clone().requires_grad_(True)
+    with torch.no_grad():
+        out = twarp.affine_transform_layer(ft, warps, masks, IMG,
+                                           windowed=True)
+    assert out.grad_fn is None
+    out = twarp.affine_transform_layer(f, warps, masks, IMG, windowed=True)
+    assert out.grad_fn is None
+    out = twarp.affine_transform_layer(ft, warps, masks, IMG, windowed=True)
+    assert isinstance(out.grad_fn, twarp.WarpFold._backward_cls)
+    assert seen == [False, False, True]
 
 
 def test_windowed_fold_equals_scan_fold():

@@ -1,6 +1,7 @@
-"""The arithmetic of ``pose_transfer_torch.tools.profile_serve`` on the CPU:
-the device idle share from a trace's intervals, and the open-loop load
-generator against a narrow CPU server."""
+"""The arithmetic of ``pose_transfer_torch.tools.profile_serve`` and
+``profile_train`` on the CPU: the device idle share from a trace's
+intervals, kernel categories, the open-loop load generator against a narrow
+CPU server, and the training batches driving a narrow CPU train step."""
 
 from types import SimpleNamespace
 
@@ -10,9 +11,12 @@ import torch
 
 from pose_transfer_torch.data.synthetic import random_image, random_skeleton
 from pose_transfer_torch.models.networks import (DeformableGenerator,
-                                                 init_weights)
+                                                 Discriminator, init_weights)
 from pose_transfer_torch.serve import PoseTransferServer
-from pose_transfer_torch.tools.profile_serve import _idle_share, _serve_load
+from pose_transfer_torch.tools.profile_serve import (_category, _idle_share,
+                                                     _serve_load)
+from pose_transfer_torch.tools.profile_train import _batches
+from pose_transfer_torch.train import engine, losses
 from pose_transfer_torch.train.engine import GANConfig
 
 torch.set_num_threads(2)
@@ -55,3 +59,45 @@ def test_serve_load_counts_every_request(rate):
     assert 0 < lat["p50"] <= lat["p95"] <= lat["p99"]
     assert got["img_per_s"] > 0 and 0 < got["mean_batch_fill"] <= 2
     assert got["batches"] >= 3
+
+
+def test_kernel_categories():
+    assert _category("void (anonymous namespace)::fold_route_kernel"
+                     "<__nv_bfloat16>(...)") == "fold_route"
+    assert _category("void (anonymous namespace)::fold_place_kernel"
+                     "<float, true>(...)") == "fold_place"
+    assert _category("sm90_xmma_gemm_bf16bf16_bf16f32") == "gemm"
+
+
+def test_profile_train_batches_drive_a_ratio_2_step():
+    """Two discriminator draws per step: the disc row is their mean; the
+    TV penalty joins the generator's total."""
+    size = (64, 64)
+    cfg = GANConfig(image_size=size, batch_size=2, training_ratio=2,
+                    tv_penalty_weight=0.5, warp_windowed=True)
+    fake, real, gen_b = _batches(cfg, np.random.default_rng(0), 1)[0]
+    assert fake["image_from"].shape == (2, 2, 64, 64, 3)
+    assert gen_b["image_from"].shape == (2, 64, 64, 3)
+    gen = DeformableGenerator(18, size, (8, 16, 16, 16), (16, 16, 16, 3),
+                              warp_windowed=True)
+    disc = Discriminator(cfg.input_nc + 3)
+    g = torch.Generator().manual_seed(0)
+    init_weights(gen, g)
+    init_weights(disc, g)
+    state = engine.TrainState(
+        gen=gen, disc=disc,
+        gen_opt=engine.make_optimizer(cfg, gen.parameters()),
+        disc_opt=engine.make_optimizer(cfg, disc.parameters()),
+        rng=torch.Generator().manual_seed(1))
+    step = engine.make_train_step(cfg, state)
+    draws = []
+    real_phase = step.disc_phase
+    step.disc_phase = lambda *a: draws.append(real_phase(*a)) or draws[-1]
+    metrics, out = step(fake, real, gen_b)
+    assert len(draws) == 2 and state.step == 1
+    assert torch.equal(metrics["disc"], torch.stack(draws).mean(dim=0))
+    assert metrics["gen"].shape == (3,) and out.shape == (2, 64, 64, 3)
+    total, ll, ad = metrics["gen"].tolist()
+    tv = losses.total_variation_loss(out).item()
+    assert tv > 0 and total == pytest.approx(ll + ad + 0.5 * tv, rel=1e-6)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
