@@ -7,9 +7,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device   card name, and name + power limit as nvidia-smi reports them
   2. build    compile every kernel of pose_transfer_torch/csrc with nvcc
   3. kernels  each kernel against its plain PyTorch version at the shapes
-              the serving and training paths give it (bitwise), with its
-              time, the plain version's time and the least time for its
-              bytes and operations
+              the serving and training paths give it (bitwise; the fused
+              fold's backward warp_fold_bwd within a stated tolerance),
+              with its time, the plain version's time and the least time
+              for its bytes and operations
   4. serve    the full-width fashion-256 deformable generator (bf16, seeded
               random weights) behind PoseTransferServer: two full batches
               of 8 and a padded partial batch of 3; outputs checked, fold
@@ -22,7 +23,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               fold's gradient through the kernels (fold_place with the
               argmax, fold_route) held against autograd through the plain
               full-scan fold, in f32
-  6. the kernels line, then the last line {"ok": true, "device": {...}}
+  6. pallas   warp_backend='pallas': the same serving and training paths
+              with the 256² and 128² fold stages on the fused two-pass warp
+              fold (warp_fold, and warp_fold_bwd in the backward; the 64²
+              stage falls back to fold_place/fold_route): launches counted
+              per forward and per step, the generator held against the
+              matmul backend, the fused fold's f32 gradient held against
+              autograd through the plain full scan
+  7. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
@@ -44,6 +52,7 @@ from pose_transfer_torch.data.device import make_batch_preparer
 from pose_transfer_torch.data.synthetic import random_image, random_skeleton
 from pose_transfer_torch.ops import warp as warp_mod
 from pose_transfer_torch.ops import warp_fused
+from pose_transfer_torch.ops import warp_pallas
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.data.synthetic import synthetic_compact_batch
 from pose_transfer_torch.train.engine import (GANConfig, build_models,
@@ -63,7 +72,12 @@ BATCH, PARTS = 8, 9
 # taps and the same roundings, so the outputs agree unless cuBLAS sums an
 # einsum in another order and flips a bf16 rounding in a skip (≤ 2^-8
 # relative), which the decoder then carries: max 0.05, mean 1e-3 on the
-# tanh output. In f32 (TF32 off) the same comparison holds max 1e-4.
+# tanh output. In f32 (TF32 off) the same comparison holds max 1e-4. The
+# 'pallas' generator against the 'matmul' one is held to the same limits:
+# its fold rounds the masked warp once where the matmul branch rounds the
+# warp and then the product, and its positions in another order, so more
+# single-ulp flips enter the skips (measured bf16 max 5.9e-3, mean 1.3e-5;
+# f32 1.5e-5).
 BF16_MAX_ABS, BF16_MEAN_ABS, F32_MAX_ABS = 0.05, 1e-3, 1e-4
 # f32 fold gradient, kernels against autograd through the plain full scan:
 # the same taps, summed in another order (the joint transposed contraction
@@ -74,6 +88,28 @@ BF16_MAX_ABS, BF16_MEAN_ABS, F32_MAX_ABS = 0.05, 1e-3, 1e-4
 # GRAD_FLIP_SHARE of the gradient's elements must agree within
 # GRAD_REL_TOL of its largest magnitude.
 GRAD_REL_TOL, GRAD_FLIP_SHARE = 1e-5, 1e-5
+# The fused fold against the full scan: the two compute their positions in
+# other orders (the fused fold as the TPU kernel does, ops/warp_pallas.py),
+# so a weight differs by up to an ulp of its position (1.5e-5 at positions
+# up to 256) and the gradients by up to ~2e-5 of the largest, not by one
+# GEMM's summation order; and more near-ties crown another part. Measured
+# on the CPU at a real batch's transforms (N = 2, C = 8 at 256²): 14 of
+# 1 048 576 elements beyond 3e-5 of the largest (75 beyond 1e-5), 12 of
+# them flips. Against autograd through the plain fused fold the same
+# gradient agreed within 5e-8 of the largest (tests/test_torch_warp_pallas
+# .py holds the plain backward to that autograd).
+PALLAS_GRAD_REL_TOL, PALLAS_GRAD_FLIP_SHARE = 3e-5, 1e-4
+# the fused warp fold's stages (H = W, C) at N = 8, T = 10 parts
+PALLAS_STAGES = ((256, 64), (128, 128))
+PALLAS_PARTS = 10
+# warp_fold_bwd against its plain version: both sum exact products in f64,
+# in other orders, so a rounding to f32 (dtmp, df_t) or to bf16 may flip
+# where the f64 sums straddle its boundary. f32: within 1e-6 of the
+# largest element (a flipped f32 rounding, carried through at most a few
+# weights ≤ 1 and 10 parts, is ~1e-7 of it); bf16: every element within
+# two bf16 ulps of its own magnitude (one flipped rounding of dtmp or df_t,
+# then the in-dtype accumulation).
+BWD_F32_REL, BWD_BF16_ULPS = 1e-6, 2
 
 
 def emit(obj) -> None:
@@ -244,6 +280,178 @@ def phase_kernels(flush) -> dict:
     return main
 
 
+def warp_inputs(h, c, dtype, gen):
+    """warp_fold inputs at N = 8, T = 10 (transforms already at the map's
+    scale): negative features; part 0 the identity (single taps), part 1 a
+    shear and scale, part 2 the translation-by-1000 sentinel, parts 3-9
+    random affines (scale 0.7-1.3, shear ±0.3, shift ±h/8), part 5
+    repeating part 4's transform and mask (an exact tie); masks with zeros
+    and fractions."""
+    dev = "cuda"
+    n, t = BATCH, PALLAS_PARTS
+    f = torch.randn((n, h, h, c), generator=gen, device=dev).to(dtype)
+    warps = torch.zeros((n, t, 8), device=dev)
+    warps[..., 0] = warps[..., 4] = 1.0
+    warps[:, 1, :6] = torch.tensor([0.9, 0.1, 2.0, -0.1, 1.1, -1.0],
+                                   device=dev)
+    warps[:, 2, 2] = warps[:, 2, 5] = 1000.0
+    r = torch.rand((n, t - 3, 6), generator=gen, device=dev) * 2 - 1
+    spread = torch.tensor([0.3, 0.3, h / 8, 0.3, 0.3, h / 8], device=dev)
+    warps[:, 3:, :6] = r * spread + torch.tensor([1.0, 0, 0, 0, 1.0, 0],
+                                                 device=dev)
+    levels = torch.tensor([0.0, 0.25, 0.5, 1.0], device=dev)
+    masks = levels[torch.randint(0, 4, (n, t, h, h), generator=gen,
+                                 device=dev)]
+    warps[:, 5], masks[:, 5] = warps[:, 4], masks[:, 4]
+    return f.contiguous(), warps.contiguous(), masks.to(dtype).contiguous()
+
+
+def _taps(pos, n):
+    """The two ramp taps of each position along an axis of n: columns
+    floor(pos) and floor(pos) + 1 (clamped into [0, n)), each with whether
+    it carries a nonzero weight inside the axis."""
+    j0 = torch.floor(pos)
+    first = (j0 >= 0) & (j0 < n)
+    second = (j0 + 1 >= 0) & (j0 + 1 < n) & (pos != j0)
+    j0 = j0.long()
+    return ((j0.clamp(0, n - 1), first), ((j0 + 1).clamp(0, n - 1), second))
+
+
+def _reached(taps, shape, live=None):
+    """Which columns x of each row (N, O, X[, C]) the x taps reach, from
+    the outputs where ``live`` (N, O, XO, C) holds if it is given."""
+    hit = torch.zeros(shape, dtype=torch.int32, device=taps[0][0].device)
+    for x, ok in taps:
+        if live is not None:
+            ok = ok[..., None] & live
+            x = x[..., None].expand_as(ok)
+        hit.scatter_add_(2, x, ok.int())
+    return hit > 0
+
+
+def warp_ops(warps, h, c, idx=None):
+    """Least operations of warp_fold (``idx`` None) or warp_fold_bwd on
+    this run's transforms and argmax; a multiply-add counts 2. Per part t,
+    forward: for each output element 2 per x tap (pass 2), the mask
+    multiply and, for t > 0, the compare; for each tmp[o, x] that some
+    output of row o taps, 2 per y tap, once (pass 1). Backward: for each
+    output element whose cotangent part t won, the mask multiply and 2 per
+    x tap (pass 2ᵀ); for each dtmp[o, x, c] that such an element taps, 2
+    per y tap (pass 1ᵀ); for t > 0 one add per df element. The positions
+    and weights, shared by the C channels, are not counted."""
+    ops = 0
+    for t in range(warps.shape[1]):
+        tr = warps[:, t]
+        xt = _taps(warp_pallas._u_pos(tr, h, h), h)         # (N, O, XO)
+        (_, y1), (_, y2) = _taps(warp_pallas._v_pos(tr, h, h), h)
+        ny = (y1.long() + y2.long()).transpose(1, 2)         # (N, O, X)
+        nx = xt[0][1].long() + xt[1][1].long()
+        if idx is None:
+            ops += c * ((2 * nx + 1 + (t > 0)).sum()
+                        + (2 * ny * _reached(xt, ny.shape)).sum()).item()
+        else:
+            won = idx == t                                    # (N, O, XO, C)
+            ops += (((1 + 2 * nx)[..., None] * won).sum()
+                    + (2 * ny[..., None]
+                       * _reached(xt, won.shape, won)).sum()).item() \
+                + (won.numel() if t else 0)
+    return ops
+
+
+def warp_bytes(h, c, itemsize, idx_bytes) -> int:
+    """Least bytes of one warp_fold (idx_bytes = the argmax written) or
+    warp_fold_bwd (idx read): the map in, the map out, the masks, the
+    transforms (32 bytes each)."""
+    n, t = BATCH, PALLAS_PARTS
+    return itemsize * (2 * n * h * h * c + n * t * h * h) + 32 * n * t \
+        + (n * h * h * c if idx_bytes else 0)
+
+
+def _bf16_ulps(diff, ref, ulps):
+    """Each element within ``ulps`` bf16 ulps of its own magnitude, or,
+    where parts nearly cancel, within 2^-16 of the largest."""
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs() + 1e-30)) - 7)
+    return bool(((diff <= ulps * ulp)
+                 | (diff <= 2.0 ** -16 * ref.abs().max())).all())
+
+
+def phase_warp_kernels(flush) -> dict:
+    """warp_fold and warp_fold_bwd against their plain versions at the
+    fused fold's stages: the forward bitwise (out and idx, with and without
+    the argmax), the backward within BWD_F32_REL / BWD_BF16_ULPS; the
+    summaries sum the bf16 main-path variants over the two stages (the
+    forward without the argmax, as serving runs it; the backward)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    main = {"warp_fold": _summary(), "warp_fold_bwd": _summary()}
+    for dtype, bits in ((torch.bfloat16, torch.int16),
+                        (torch.float32, torch.int32)):
+        dname = str(dtype).split(".")[-1]
+        for h, c in PALLAS_STAGES:
+            f, warps, masks = warp_inputs(h, c, dtype, gen)
+            ops_f = warp_ops(warps, h, c)
+            shape = {"N": BATCH, "H": h, "W": h, "C": c, "T": PALLAS_PARTS}
+            for emit_idx in (False, True):
+                ref, ref_idx = warp_pallas.warp_fold_pallas_reference(
+                    f, warps, masks, emit_idx)
+                out, idx = warp_pallas.warp_fold(f, warps, masks, emit_idx)
+                torch.cuda.synchronize()
+                same = torch.equal(out.view(bits), ref.view(bits))
+                if emit_idx:
+                    same = same and torch.equal(idx, ref_idx)
+                err = (out.float() - ref.float()).abs().max().item()
+                check(same, f"warp_fold bitwise {dtype} emit_idx={emit_idx}"
+                      f" at {h}x{h}x{c}")
+                ms = time_cuda(lambda: warp_pallas.warp_fold(
+                    f, warps, masks, emit_idx), 20, flush)
+                plain_ms = time_cuda(
+                    lambda: warp_pallas.warp_fold_pallas_reference(
+                        f, warps, masks, emit_idx), 2, flush)
+                res = {"ms": ms, "plain_ms": plain_ms, **_bound(
+                    warp_bytes(h, c, out.element_size(), emit_idx), ops_f)}
+                emit({"phase": "kernel", "name": "warp_fold", "dtype": dname,
+                      "emit_idx": emit_idx, "shape": shape,
+                      "bitwise_equal": same, "max_abs_err": err,
+                      "operations": ops_f, **res})
+                m = main["warp_fold"]
+                m["max_abs_err"] = max(m["max_abs_err"], err)
+                if dtype == torch.bfloat16 and not emit_idx:
+                    _add(m, res)
+            g = torch.randn(f.shape, generator=gen, device="cuda").to(dtype)
+            ops_b = warp_ops(warps, h, c, idx)
+            ref = warp_pallas.warp_fold_pallas_bwd_reference(
+                g, warps, masks, idx)
+            df = warp_pallas.warp_fold_bwd(g, warps, masks, idx)
+            torch.cuda.synchronize()
+            diff = (df.float() - ref.float()).abs()
+            scale = ref.float().abs().max().item()
+            if dtype == torch.float32:
+                ok = diff.max().item() <= BWD_F32_REL * scale
+            else:
+                ok = _bf16_ulps(diff, ref.float(), BWD_BF16_ULPS)
+            check(ok, f"warp_fold_bwd {dtype} at {h}x{h}x{c}: max diff "
+                  f"{diff.max().item()} of {scale}")
+            ms = time_cuda(lambda: warp_pallas.warp_fold_bwd(
+                g, warps, masks, idx), 20, flush)
+            plain_ms = time_cuda(
+                lambda: warp_pallas.warp_fold_pallas_bwd_reference(
+                    g, warps, masks, idx), 2, flush)
+            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
+                warp_bytes(h, c, g.element_size(), True), ops_b)}
+            err = diff.max().item()
+            emit({"phase": "kernel", "name": "warp_fold_bwd", "dtype": dname,
+                  "shape": shape, "within_tolerance": ok,
+                  "elements_differing": int((diff > 0).sum().item()),
+                  "elements": diff.numel(), "max_abs_err": err,
+                  "max_abs_ref": scale, "operations": ops_b, **res})
+            m = main["warp_fold_bwd"]
+            m["max_abs_err"] = max(m["max_abs_err"], err)
+            if dtype == torch.bfloat16:
+                _add(m, res)
+            del f, g, ref, df, out, idx, ref_idx, diff
+    return main
+
+
 def make_requests(rng, n, size):
     return [(random_image(rng, size),
              random_skeleton(rng, size, 18).astype(np.float32),
@@ -258,14 +466,27 @@ def check_images(out, n, what):
 
 
 def _reset_counts() -> None:
-    for k in warp_fused.LAUNCHES:
-        warp_fused.LAUNCHES[k] = 0
+    for counts in (warp_fused.LAUNCHES, warp_pallas.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     warp_mod.COUNTS["scan_fallback"] = 0
 
 
-def phase_serve(card: str) -> int:
+def _counts() -> dict:
+    return {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES,
+            "scan_fallback": warp_mod.COUNTS["scan_fallback"]}
+
+
+def phase_serve(card: str, backend: str = "matmul") -> dict:
+    """The full-width generator on the warp ``backend`` behind
+    PoseTransferServer: a warm-up batch, two full batches of 8 and a padded
+    partial batch of 3, outputs checked, fold kernel launches counted per
+    forward; then one full batch held against a reference path with the
+    same weights and inputs, in bf16 and f32: on 'matmul' the kernel-placed
+    fold against the plain full-scan fold, on 'pallas' the fused fold
+    against the 'matmul' backend."""
     cfg = GANConfig(image_size=(256, 256), pose_dim=18, batch_size=BATCH,
-                    compute_dtype=torch.bfloat16)
+                    compute_dtype=torch.bfloat16, warp_backend=backend)
     gen = build_models(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in gen.parameters())
     check(n_params == GEN_PARAMS, f"generator has {n_params} parameters")
@@ -281,55 +502,71 @@ def phase_serve(card: str) -> int:
         full = srv.generate(reqs[:2 * BATCH])
         stats = srv.stats()
         partial = srv.generate(reqs[2 * BATCH:])
-        launches = warp_fused.LAUNCHES["fold_place"]
-        fallbacks = warp_mod.COUNTS["scan_fallback"]
+        counts = _counts()
         batch = collate([srv.prepare_request(*r) for r in reqs[:BATCH]])
     check_images(full, 2 * BATCH, "full batches")
     check_images(partial, 3, "partial batch")
     forwards = stats["batches"] + 1
-    check(launches + fallbacks == 3 * forwards,
-          f"{launches} launches + {fallbacks} fallbacks != 3 per forward")
-    check(launches > 0, "serving launched no fold_place kernel")
-    emit({"phase": "serve", "requests": 2 * BATCH + 3, "forwards": forwards,
-          "fold_place_launches": launches, "scan_fallbacks": fallbacks,
-          "launches_per_forward": launches / forwards,
+    place, fallbacks = counts["fold_place"], counts["scan_fallback"]
+    # windowed stages: 256², 128², 64² on 'matmul'; 64² on 'pallas', whose
+    # fused fold takes 256² and 128² (2 warp_fold launches, no argmax)
+    windowed = 3 if backend == "matmul" else 1
+    check(place + fallbacks == windowed * forwards,
+          f"{place} fold_place launches + {fallbacks} fallbacks != "
+          f"{windowed} per forward")
+    check(place > 0, "serving launched no fold_place kernel")
+    if backend == "pallas":
+        check(counts["warp_fold"] == 2 * forwards
+              and counts["warp_fold_idx"] == 0,
+              f"{counts['warp_fold']} warp_fold launches != 2 per forward "
+              f"({forwards} forwards), or some emitted the argmax")
+    emit({"phase": "serve", "backend": backend, "requests": 2 * BATCH + 3,
+          "forwards": forwards, "fold_place_launches": place,
+          "warp_fold_launches": counts["warp_fold"],
+          "scan_fallbacks": fallbacks,
+          "fold_place_per_forward": place / forwards,
+          "warp_fold_per_forward": counts["warp_fold"] / forwards,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
     # one burst of 16 requests: a check that the server answers, not a
     # serving benchmark (tools/profile_serve.py measures under load)
-    emit({"phase": "serve_smoke_stats", "batch": BATCH, "dtype": "bfloat16",
-          "card": card, **stats})
+    emit({"phase": "serve_smoke_stats", "backend": backend, "batch": BATCH,
+          "dtype": "bfloat16", "card": card, **stats})
 
-    # one full batch through the kernel-placed fold and the plain
-    # full-scan fold, same weights, same inputs
+    if backend == "matmul":
+        attr, ref, kernel, per_forward = "warp_windowed", False, \
+            "fold_place", 3
+        phase = "kernel_vs_plain_fold"
+    else:
+        attr, ref, kernel, per_forward = "warp_backend", "matmul", \
+            "warp_fold", 2
+        phase = "pallas_vs_matmul_backend"
+    under_test = getattr(gen, attr)
     for dtype in (torch.bfloat16, torch.float32):
         gen.dtype = dtype
         step = make_eval_step(dataclasses.replace(cfg, compute_dtype=dtype),
                               gen)
         _reset_counts()
-        gen.warp_windowed = True
         out_k, _ = step(batch)
-        launches_one = warp_fused.LAUNCHES["fold_place"]
-        fallbacks_one = warp_mod.COUNTS["scan_fallback"]
-        gen.warp_windowed = False
+        one = _counts()
+        setattr(gen, attr, ref)
         out_p, _ = step(batch)
-        gen.warp_windowed = True
+        setattr(gen, attr, under_test)
         diff = (out_k.float() - out_p.float()).abs()
-        res = {"phase": "kernel_vs_plain_fold",
-               "dtype": str(dtype).split(".")[-1],
-               "launches": launches_one, "scan_fallbacks": fallbacks_one,
+        res = {"phase": phase, "dtype": str(dtype).split(".")[-1],
+               "launches": one[kernel], "scan_fallbacks": one["scan_fallback"],
                "max_abs_diff": diff.max().item(),
                "mean_abs_diff": diff.mean().item()}
         emit(res)
-        check(launches_one == 3, f"{launches_one} launches in one forward")
+        check(one[kernel] == per_forward,
+              f"{one[kernel]} {kernel} launches in one forward")
         if dtype == torch.bfloat16:
             check(res["max_abs_diff"] <= BF16_MAX_ABS
                   and res["mean_abs_diff"] <= BF16_MEAN_ABS,
-                  "bf16 kernel fold vs plain fold")
+                  f"bf16 {phase}")
         else:
-            check(res["max_abs_diff"] <= F32_MAX_ABS,
-                  "f32 kernel fold vs plain fold")
+            check(res["max_abs_diff"] <= F32_MAX_ABS, f"f32 {phase}")
     gen.dtype = torch.bfloat16
-    return launches
+    return counts
 
 
 def _stacked(batch: dict) -> dict:
@@ -337,11 +574,12 @@ def _stacked(batch: dict) -> dict:
     return {k: v[None] for k, v in batch.items()}
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str, backend: str = "matmul") -> dict:
     """Full-width bf16 training steps through the entry points a trainer
-    calls: ``create_state`` then ``make_train_step``."""
+    calls: ``create_state`` then ``make_train_step``, on the warp
+    ``backend``."""
     cfg = GANConfig(image_size=(256, 256), pose_dim=18, batch_size=BATCH,
-                    compute_dtype=torch.bfloat16)
+                    compute_dtype=torch.bfloat16, warp_backend=backend)
     state = create_state(cfg, seed=0, device="cuda")
     n_gen = sum(p.numel() for p in state.gen.parameters())
     n_disc = sum(p.numel() for p in state.disc.parameters())
@@ -366,7 +604,7 @@ def phase_train(card: str) -> dict:
     metrics = [step(*b)[0] for b in batches[1:]]
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(warp_fused.LAUNCHES)
+    launches = {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES}
     fallbacks = warp_mod.COUNTS["scan_fallback"]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
@@ -381,21 +619,35 @@ def phase_train(card: str) -> dict:
     check(unmoved == 0, f"{unmoved_gen} generator and "
           f"{unmoved - unmoved_gen} discriminator tensors did not move")
     place, route = launches["fold_place"], launches["fold_route"]
-    check(place + fallbacks == 6 * TRAIN_STEPS,
-          f"{place} fold_place launches + {fallbacks} fallbacks != 6 per "
-          "step (two forwards x three windowed stages)")
+    # windowed stages: 256², 128² and 64² on 'matmul'; 64² on 'pallas',
+    # whose fused fold takes 256² and 128²
+    windowed = 3 if backend == "matmul" else 1
+    check(place + fallbacks == 2 * windowed * TRAIN_STEPS,
+          f"{place} fold_place launches + {fallbacks} fallbacks != "
+          f"{2 * windowed} per step (two forwards x {windowed} windowed "
+          "stages)")
+    if backend == "pallas":
+        fused = (launches["warp_fold"], launches["warp_fold_idx"],
+                 launches["warp_fold_bwd"])
+        check(fused == (4 * TRAIN_STEPS, 2 * TRAIN_STEPS, 2 * TRAIN_STEPS),
+              f"warp_fold / with the argmax / warp_fold_bwd launches "
+              f"{fused} != 4 / 2 / 2 per step")
     check(route == launches["fold_place_idx"],
           f"{route} fold_route launches != {launches['fold_place_idx']} "
           "generator-phase fold_place launches with the argmax")
     check(route > 0 and place > 0, "training launched no fold kernel")
     images = BATCH * (2 * cfg.training_ratio + 1)
-    emit({"phase": "train", "card": card, "batch": BATCH, "dtype": "bfloat16",
+    emit({"phase": "train", "backend": backend, "card": card, "batch": BATCH,
+          "dtype": "bfloat16",
           "steps": TRAIN_STEPS, "gen_params": n_gen, "disc_params": n_disc,
           "losses": {"gen [total, ll, ad]": rows["gen"],
                      "disc [total, true, fake]": rows["disc"]},
           "fold_place_launches": place,
           "fold_place_idx_launches": launches["fold_place_idx"],
           "fold_route_launches": route, "scan_fallbacks": fallbacks,
+          "warp_fold_launches": launches["warp_fold"],
+          "warp_fold_idx_launches": launches["warp_fold_idx"],
+          "warp_fold_bwd_launches": launches["warp_fold_bwd"],
           "step_ms": wall_s / TRAIN_STEPS * 1e3,
           # 3 steps after one warm-up: a smoke reading, not a benchmark
           # (tools/profile_train.py measures); images per step counted as
@@ -406,10 +658,12 @@ def phase_train(card: str) -> dict:
     return launches
 
 
-def phase_fold_grad() -> dict:
+def phase_fold_grad(backend: str = "matmul") -> list:
     """The fold's f32 gradient through the kernels against autograd
-    through the plain full-scan fold, at one real batch's warps and masks,
-    for the three windowed stages (seeded features and cotangent)."""
+    through the plain full-scan fold, at one real batch's warps and masks
+    (seeded features and cotangent): on 'matmul' at the three windowed
+    stages (fold_place with the argmax, fold_route), on 'pallas' at the two
+    fused stages (warp_fold with the argmax, warp_fold_bwd)."""
     prep = make_batch_preparer(image_size=(256, 256), pose_dim=18,
                                device="cuda")(synthetic_compact_batch(
                                    np.random.default_rng(3), BATCH,
@@ -417,38 +671,52 @@ def phase_fold_grad() -> dict:
     warps, masks = prep["warps"], prep["masks"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
+    stages = [(h, c) for h, c, _, _ in STAGES] if backend == "matmul" \
+        else list(PALLAS_STAGES)
     res = []
-    for h, c, _, _ in STAGES:
+    for h, c in stages:
         f = torch.randn((BATCH, h, h, c), generator=gen, device="cuda")
         g = torch.randn((BATCH, h, h, c), generator=gen, device="cuda")
         plan = warp_mod.plan_folds([tuple(f.shape)], warps, masks,
-                                   torch.float32, windowed=True)[0]
-        check(plan.windows is not None and plan.fits,
-              f"stage {h}: the real batch does not take the windowed fold")
+                                   torch.float32, windowed=True,
+                                   backend=backend)[0]
+        if backend == "matmul":
+            check(plan.windows is not None and plan.fits,
+                  f"stage {h}: the real batch does not take the windowed "
+                  "fold")
+        else:
+            check(plan.pallas, f"stage {h}: not on the fused fold")
         _reset_counts()
         fk = f.clone().requires_grad_(True)
         warp_mod.affine_transform_layer(fk, warps, masks, (256, 256),
                                         windowed=True, plan=plan).backward(g)
         torch.cuda.synchronize()
-        check(warp_fused.LAUNCHES["fold_route"] == 1
-              and warp_fused.LAUNCHES["fold_place_idx"] == 1,
-              f"stage {h}: the kernel path did not run")
+        if backend == "matmul":
+            ran = warp_fused.LAUNCHES["fold_route"] == 1 \
+                and warp_fused.LAUNCHES["fold_place_idx"] == 1
+        else:
+            ran = warp_pallas.LAUNCHES["warp_fold_bwd"] == 1 \
+                and warp_pallas.LAUNCHES["warp_fold_idx"] == 1
+        check(ran, f"stage {h}: the kernel path did not run")
         fp = f.clone().requires_grad_(True)
         out, _ = warp_mod._fold_scan(fp, warps, plan.masks_r, (256, 256),
                                      "max", emit_idx=False)
         out.backward(g)
         diff = (fk.grad - fp.grad).abs()
         scale = fp.grad.abs().max().item()
-        over = (diff > GRAD_REL_TOL * scale).sum().item()
-        r = {"phase": "fold_grad_kernel_vs_plain", "dtype": "float32",
-             "shape": [BATCH, h, h, c], "max_abs_ref": scale,
-             "max_abs_diff": diff.max().item(),
+        tol, share = (GRAD_REL_TOL, GRAD_FLIP_SHARE) if backend == "matmul" \
+            else (PALLAS_GRAD_REL_TOL, PALLAS_GRAD_FLIP_SHARE)
+        over = (diff > tol * scale).sum().item()
+        r = {"phase": "fold_grad_kernel_vs_plain", "backend": backend,
+             "dtype": "float32", "shape": [BATCH, h, h, c],
+             "max_abs_ref": scale, "max_abs_diff": diff.max().item(),
              "mean_abs_diff": diff.mean().item(),
-             "elements_over_tol": over, "elements": diff.numel()}
+             "rel_tol": tol, "elements_over_tol": over,
+             "elements": diff.numel()}
         emit(r)
-        check(over <= GRAD_FLIP_SHARE * diff.numel(),
+        check(over <= share * diff.numel(),
               f"stage {h}: {over} gradient elements differ by more than "
-              f"{GRAD_REL_TOL} of the largest")
+              f"{tol} of the largest")
         res.append(r)
         del fk, fp, out, diff
     return res
@@ -482,21 +750,36 @@ def main() -> int:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     main_k = phase_kernels(flush)
+    main_k.update(phase_warp_kernels(flush))
     del flush
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_fold_grad()
+    pallas_serve = phase_serve(smi, "pallas")
+    pallas_train = phase_train(smi, "pallas")
+    phase_fold_grad("pallas")
 
+    tpu = "pose_transfer_tpu/ops/"
+    rows = (
+        ("fold_place",
+         serve_launches["fold_place"] + train_launches["fold_place"],
+         tpu + "warp_fused.py:189", []),
+        ("fold_route", train_launches["fold_route"],
+         tpu + "warp_fused.py:380", []),
+        # the forward's two passes (pass 1 :223, pass 2 :243), fused
+        ("warp_fold", pallas_serve["warp_fold"] + pallas_train["warp_fold"],
+         tpu + "warp_pallas.py:223", [tpu + "warp_pallas.py:243"]),
+        # the backward's two transposed passes (:288, :307), fused
+        ("warp_fold_bwd", pallas_train["warp_fold_bwd"],
+         tpu + "warp_pallas.py:288", [tpu + "warp_pallas.py:307"]),
+    )
     kernels = []
-    for name, launches in (
-            ("fold_place", serve_launches + train_launches["fold_place"]),
-            ("fold_route", train_launches["fold_route"])):
+    for name, launches, replaces, also in rows:
         m = main_k[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pose_transfer_torch/csrc/{name}.cu",
-            "replaces": "pose_transfer_tpu/ops/warp_fused.py:"
-            + ("189" if name == "fold_place" else "380"),
+            "replaces": replaces, "also_replaces": also,
             "launches": launches, "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"],

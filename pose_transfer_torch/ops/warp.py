@@ -29,6 +29,12 @@ routes the cotangent through the argmax and the transposed two-pass warps,
 rebuilding the banded weights. The windowed branch routes with the
 ``fold_route`` kernel; warps and masks get no gradient (host data).
 
+``backend='pallas'`` (the JAX package's ``warp_backend='pallas'``) sends
+every fold instance whose shape passes ``warp_pallas.supported`` and whose
+fold is a max to the fused two-pass warp fold of ``ops/warp_pallas.py``
+(forward and backward kernels, ``WarpFoldPallas``); the other instances
+take the branches above, as in the JAX package (``warp.py:1282-1293``).
+
 Transforms are (T, 8) row-major first-8 of a 3×3 matrix acting on (x, y, 1),
 estimated at ``init_image_size``; translations are rescaled per feature
 resolution.
@@ -41,7 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import warp_fused
+from . import warp_fused, warp_pallas
 
 # fold instances that could have taken the windowed fold but fell back to
 # the full scan because some part's support did not fit its window
@@ -419,18 +425,34 @@ class FoldPlan:
     masks_r: torch.Tensor | None
     windows: tuple[torch.Tensor, torch.Tensor] | None = None
     fits: bool = False
+    pallas: bool = False       # the fused two-pass warp fold
+
+
+def check_backend(backend: str) -> None:
+    """Raise on a warp backend the port does not run."""
+    if backend == "exact":
+        raise NotImplementedError(
+            "warp_backend='exact' (the direct gather-bilinear warp, "
+            "warp_feature_single) is not ported yet (ROADMAP.md §A); use "
+            "'matmul' or 'pallas'")
+    if backend not in ("matmul", "pallas"):
+        raise ValueError(f"invalid warp backend {backend!r}")
 
 
 def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
                dtype: torch.dtype, warp_skip: str = "mask",
                warp_agg: str = "max", windowed: bool = False,
-               static_empty: tuple[int, ...] = ()) -> list[FoldPlan]:
+               static_empty: tuple[int, ...] = (),
+               backend: str = "matmul") -> list[FoldPlan]:
     """Plan the fold instances of one forward, one per (N, h, w, C) shape.
 
-    Resizes the masks for every instance, computes every windowed
-    instance's support windows, and resolves all 'does every non-body part
-    fit its window?' flags with ONE host sync.
+    Resizes the masks for every instance, marks the instances that take the
+    fused warp fold (``backend='pallas'``: a supported shape and a max
+    fold; they need no windows), computes every other windowed instance's
+    support windows, and resolves all 'does every non-body part fit its
+    window?' flags with ONE host sync.
     """
+    check_backend(backend)
     plans, pending = [], []
     t = warps.shape[1]
     for n, h, w, c in shapes:
@@ -441,8 +463,11 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
         else:
             masks_r = None
         plan = FoldPlan(masks_r)
-        if _use_place_kernel(h, w, c, t, warp_agg, masks_r is not None,
-                             windowed, static_empty):
+        if backend == "pallas" and warp_agg == "max" \
+                and warp_pallas.supported(h, w):
+            plan.pallas = True
+        elif _use_place_kernel(h, w, c, t, warp_agg, masks_r is not None,
+                               windowed, static_empty):
             s_y, s_x = _kernel_window_sizes(h, w)
             y0, x0, fits, _ = _support_windows(masks_r, s_y, s_x,
                                                warp_fused.X_ALIGN)
@@ -456,9 +481,31 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
     return plans
 
 
+def _pallas_args(features, warps, masks_r, init_image_size):
+    """The fused fold's contiguous features, (N, T, 8) f32 transforms and
+    (N, T, h, w) masks. The translations are scaled in f32 after the cast,
+    as in the JAX package's Pallas branch (the matmul branch scales in the
+    warps' dtype); unmasked warping folds under all-ones masks."""
+    n, h, w, _ = features.shape
+    t = warps.shape[1]
+    scale = torch.tensor([1.0, 1.0, w / init_image_size[1], 1.0, 1.0,
+                          h / init_image_size[0], 1.0, 1.0],
+                         dtype=torch.float32, device=warps.device)
+    warps_scaled = (warps.float() * scale).contiguous()
+    if masks_r is None:
+        masks_r = torch.ones((n, t, h, w), dtype=features.dtype,
+                             device=features.device)
+    return features.contiguous(), warps_scaled, masks_r.contiguous()
+
+
 def _fold(features, warps, plan, init_image_size, warp_agg, static_empty,
           emit_idx):
     """The fold on the branch ``plan`` chose → (out, idx, windowed)."""
+    if plan.pallas:
+        out, idx = warp_pallas.warp_fold(
+            *_pallas_args(features, warps, plan.masks_r, init_image_size),
+            emit_idx)
+        return out, idx, False
     if plan.windows is not None:
         if plan.fits:
             out, idx = _fold_windowed_place(features, warps, plan.masks_r,
@@ -517,12 +564,14 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
                            warp_agg: str = "max",
                            windowed: bool = False,
                            static_empty: tuple[int, ...] = (),
-                           plan: FoldPlan | None = None) -> torch.Tensor:
+                           plan: FoldPlan | None = None,
+                           backend: str = "matmul") -> torch.Tensor:
     """Warp + (mask) + aggregate over the T part transforms.
 
-    Differentiable in ``features`` (``WarpFold``) when grad mode is on and
-    they require grad; otherwise the forward alone runs, without the
-    argmax (serving and the discriminator phase's generator forward).
+    Differentiable in ``features`` (``WarpFold``, or ``WarpFoldPallas`` on
+    the fused branch) when grad mode is on and they require grad;
+    otherwise the forward alone runs, without the argmax (serving and the
+    discriminator phase's generator forward).
 
     Args:
       features: (N, h, w, C) NHWC appearance skip.
@@ -534,8 +583,10 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
       warp_agg: 'max' or 'avg'.
       windowed: take the kernel-placed windowed fold where the shape
         qualifies and every part's support fits its window.
-      static_empty: part indices that are empty for every input.
+      static_empty: part indices that are empty for every input (the
+        fused branch folds every part, as in the JAX package).
       plan: this instance's ``plan_folds`` entry (computed here if None).
+      backend: 'matmul' or 'pallas' (read only when ``plan`` is None).
 
     Returns:
       (N, h, w, C) aggregated warped features.
@@ -543,8 +594,11 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
     if plan is None:
         plan = plan_folds([tuple(features.shape)], warps, masks,
                           features.dtype, warp_skip, warp_agg, windowed,
-                          static_empty)[0]
+                          static_empty, backend)[0]
     if torch.is_grad_enabled() and features.requires_grad:
+        if plan.pallas:
+            return warp_pallas.WarpFoldPallas.apply(*_pallas_args(
+                features, warps, plan.masks_r, init_image_size))
         return WarpFold.apply(features, warps, plan, init_image_size,
                               warp_agg, static_empty)
     return _fold(features, warps, plan, init_image_size, warp_agg,

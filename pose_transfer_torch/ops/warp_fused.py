@@ -132,6 +132,8 @@ def _check_place(body, wins, mwins, zero_nb, offs):
         raise ValueError("fold_place: mwins/zero_nb/offs shapes do not match")
     if sy > h or sx > w:
         raise ValueError("fold_place: window larger than the feature map")
+    if not 1 <= p <= 32:
+        raise ValueError(f"fold_place: needs 1 <= P <= 32, got P={p}")
     return n, h, w, c, p, sy, sx
 
 
@@ -155,12 +157,15 @@ def _check_route(g, idx, mask0, mwins, offs):
         raise ValueError("fold_route: idx/mask0/offs shapes do not match")
     if sy > h or sx > w:
         raise ValueError("fold_route: window larger than the feature map")
+    if not 1 <= p <= 32:
+        raise ValueError(f"fold_route: needs 1 <= P <= 32, got P={p}")
     return n, h, w, c, p, sy, sx
 
 
-def _on_card(name, tensors, c, p):
+def _on_card(name, tensors, c):
     """Whether to launch the kernel (CUDA) or run the plain version (CPU);
-    raises on anything the kernel does not take."""
+    raises on a layout the kernel does not take (the callers' shape checks
+    hold the rest)."""
     first = tensors[0]
     if first.device.type == "cpu":
         if any(t.device.type != "cpu" for t in tensors):
@@ -170,9 +175,8 @@ def _on_card(name, tensors, c, p):
             or any(t.device != first.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     vec = 16 // first.element_size()
-    if c % vec or not 1 <= p <= 32:
-        raise ValueError(f"{name}: needs C % {vec} == 0 and 1 <= P <= 32, "
-                         f"got C={c}, P={p}")
+    if c % vec:
+        raise ValueError(f"{name}: needs C % {vec} == 0, got C={c}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -230,7 +234,7 @@ def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
     n, h, w, c, p, sy, sx = _check_place(body, wins, mwins, zero_nb, offs)
     tensors = (body, wins, mwins, zero_nb, offs)
     _refuse_grad("fold_place", tensors)
-    if not _on_card("fold_place", tensors, c, p):
+    if not _on_card("fold_place", tensors, c):
         return fold_place_reference(body, wins, mwins, zero_nb, offs,
                                     emit_idx)
     lib = _kernel_lib("fold_place", 7, 9)
@@ -271,7 +275,7 @@ def fold_route(g: torch.Tensor, idx: torch.Tensor, mask0: torch.Tensor,
     n, h, w, c, p, sy, sx = _check_route(g, idx, mask0, mwins, offs)
     tensors = (g, idx, mask0, mwins, offs)
     _refuse_grad("fold_route", tensors)
-    if not _on_card("fold_route", tensors, c, p):
+    if not _on_card("fold_route", tensors, c):
         return fold_route_reference(g, idx, mask0, mwins, offs)
     lib = _kernel_lib("fold_route", 7, 8)
     gwins = torch.empty((n, p, sy, sx, c), dtype=g.dtype, device=g.device)

@@ -2,9 +2,11 @@
 holds up under a stream of requests.
 
     python3 -m pose_transfer_torch.tools.profile_serve [--batch 8]
+        [--warp_backend {matmul,pallas}]
 
-Builds the full-width fashion-256 generator (bf16, seeded random weights)
-and reports as JSON lines:
+Builds the full-width fashion-256 generator (bf16, seeded random weights;
+``--warp_backend pallas`` puts the 256² and 128² fold stages on the fused
+warp fold) and reports as JSON lines, each naming the backend:
 - the device time of one eval step on one prepared batch of synthetic
   requests (CUDA events, mean over 10 steps after warm-up) and its host
   wall time;
@@ -13,7 +15,8 @@ and reports as JSON lines:
   around each, taken in separate steps);
 - a ``torch.profiler`` trace of three steps: device time summed by kernel
   category (convolution, GEMM — the fold's two-pass einsums —, the
-  ``fold_place`` kernel, other elementwise/reduction kernels), the device's
+  ``fold_place``, ``fold_route``, ``warp_fold`` and ``warp_fold_bwd``
+  kernels, other elementwise/reduction kernels), the device's
   idle share within the traced span, and the top kernels;
 - ``PoseTransferServer`` (default 5 ms admission window) under load, over
   384 requests cycled from a pool of 64 seeded synthetic ones:
@@ -46,6 +49,9 @@ REQUESTS = 384    # requests per serving load: tails from hundreds, not tens
 
 def _category(name: str) -> str:
     n = name.lower()
+    for kernel in ("warp_fold_bwd", "warp_fold"):
+        if kernel in n:
+            return kernel
     if "fold_place" in n:
         return "fold_place"
     if "fold_route" in n:
@@ -173,6 +179,8 @@ def _serve_load(srv, pool, n: int, rate, rng) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--warp_backend", choices=("matmul", "pallas"),
+                    default="matmul")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -182,7 +190,10 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = GANConfig(image_size=(256, 256), pose_dim=18,
-                    batch_size=args.batch, compute_dtype=torch.bfloat16)
+                    batch_size=args.batch, compute_dtype=torch.bfloat16,
+                    warp_backend=args.warp_backend)
+    tag = {"batch": args.batch, "warp_backend": args.warp_backend,
+           "card": smi}
     gen = build_models(cfg, seed=0, device="cuda")
     step = make_eval_step(cfg, gen)
     rng = np.random.default_rng(0)
@@ -207,11 +218,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
     dev_ms = start.elapsed_time(end) / ITERS
-    print(json.dumps({"phase": "step", "batch": args.batch,
-                      "device_ms": dev_ms, "wall_ms": wall_ms,
-                      "img_per_s_device": args.batch / dev_ms * 1e3,
-                      "card": smi}), flush=True)
-    print(json.dumps({"phase": "layers", "batch": args.batch, "card": smi,
+    print(json.dumps({"phase": "step", **tag, "device_ms": dev_ms,
+                      "wall_ms": wall_ms,
+                      "img_per_s_device": args.batch / dev_ms * 1e3}),
+          flush=True)
+    print(json.dumps({"phase": "layers", **tag,
                       "device_ms_per_step": _layer_ms(gen, step, batch,
                                                       ITERS)}),
           flush=True)
@@ -235,7 +246,7 @@ def main(argv=None) -> int:
         by_cat[cat] = by_cat.get(cat, 0.0) + dev_us / 1e3 / 3
     kernels.sort(reverse=True)
     print(json.dumps({
-        "phase": "profile", "batch": args.batch, "card": smi, "steps": 3,
+        "phase": "profile", **tag, "steps": 3,
         "device_ms_per_step_by_category": by_cat,
         **_idle_share(prof),
         "top_kernels": [{"name": k[:90], "ms_per_step": us / 1e3 / 3,
@@ -255,8 +266,8 @@ def main(argv=None) -> int:
                         frac * capacity["img_per_s"], rng)
             for frac in (0.5, 0.8)]
     for load in loads:
-        print(json.dumps({"phase": "serve_load", "batch": args.batch,
-                          "card": smi, **load}), flush=True)
+        print(json.dumps({"phase": "serve_load", **tag, **load}),
+              flush=True)
         if load["failed"]:
             raise RuntimeError(f"{load['failed']} requests failed")
     return 0

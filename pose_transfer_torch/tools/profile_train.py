@@ -1,10 +1,13 @@
 """Where a training step spends its device time.
 
     python3 -m pose_transfer_torch.tools.profile_train [--batch 8 32]
+        [--warp_backend {matmul,pallas}]
 
 For each batch size, builds the full-width fashion-256 training state
-(generator and discriminator, bf16, seeded random weights, ``create_state``)
-and the two-phase step (``make_train_step``), and reports as JSON lines:
+(generator and discriminator, bf16, seeded random weights, ``create_state``;
+``--warp_backend pallas`` puts the 256² and 128² fold stages on the fused
+warp fold) and the two-phase step (``make_train_step``), and reports as
+JSON lines, each naming the backend:
 - the step: device ms (CUDA events around each step, mean over 5 steps after
   2 warm-up steps), host wall ms, train img/s from the wall time and from
   the device time, and peak device memory. Images per step are counted as
@@ -16,7 +19,8 @@ and the two-phase step (``make_train_step``), and reports as JSON lines:
   Adam update, the generator phase's forward and its fold instances, the
   discriminator forward in the generator phase, the generator backward with
   each fold instance's backward (the fold_route launch and the transposed
-  warps) split out, and the generator's Adam update;
+  warps, or the warp_fold_bwd launch) split out, and the generator's Adam
+  update;
 - a ``torch.profiler`` trace of two steps: device time by kernel category
   (``profile_serve._category``), the device's idle share within the traced
   span (``profile_serve._idle_share``) and the top kernels.
@@ -36,7 +40,7 @@ import torch
 from ..data.synthetic import synthetic_compact_batch
 from ..models import networks
 from ..ops import warp as warp_mod
-from ..ops import warp_fused
+from ..ops import warp_fused, warp_pallas
 from ..train.engine import GANConfig, create_state, make_train_step
 from .profile_serve import _category, _idle_share
 
@@ -94,6 +98,7 @@ def _layer_ms(step, batches) -> dict:
             warp_mod._fold_windowed_place_bwd,
         (warp_mod, "_fold_scan_bwd"): warp_mod._fold_scan_bwd,
         (warp_fused, "fold_route"): warp_fused.fold_route,
+        (warp_pallas, "warp_fold_bwd"): warp_pallas.warp_fold_bwd,
         (torch.Tensor, "backward"): torch.Tensor.backward,
     }
     networks.affine_transform_layer = timed(
@@ -108,6 +113,9 @@ def _layer_ms(step, batches) -> dict:
     warp_fused.fold_route = timed(
         lambda a: f"fold_route_{res(a)} (gen phase)",
         saved_mod[(warp_fused, "fold_route")])
+    warp_pallas.warp_fold_bwd = timed(
+        lambda a: f"fold_bwd_{res(a)} (gen phase)",
+        saved_mod[(warp_pallas, "warp_fold_bwd")])
     torch.Tensor.backward = timed(in_phase("backward"),
                                   saved_mod[(torch.Tensor, "backward")])
     inst = {(step, "disc_phase"): set_phase("disc phase", step.disc_phase),
@@ -152,9 +160,10 @@ def _layer_ms(step, batches) -> dict:
     return dict(sorted(out.items()))
 
 
-def profile(batch: int, smi: str) -> None:
+def profile(batch: int, smi: str, warp_backend: str = "matmul") -> None:
     cfg = GANConfig(image_size=(256, 256), pose_dim=18, batch_size=batch,
-                    compute_dtype=torch.bfloat16)
+                    compute_dtype=torch.bfloat16, warp_backend=warp_backend)
+    tag = {"batch": batch, "warp_backend": warp_backend, "card": smi}
     state = create_state(cfg, seed=0, device="cuda")
     step = make_train_step(cfg, state)
     batches = _batches(cfg, np.random.default_rng(0), 3)
@@ -177,19 +186,20 @@ def profile(batch: int, smi: str) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
     dev_ms = sum(s.elapsed_time(e) for s, e in spans) / ITERS
     print(json.dumps({
-        "phase": "train_step", "batch": batch, "dtype": "bfloat16",
-        "card": smi, "images_per_step": images, "device_ms": dev_ms,
+        "phase": "train_step", **tag, "dtype": "bfloat16",
+        "images_per_step": images, "device_ms": dev_ms,
         "wall_ms": wall_ms, "train_img_per_s": images / wall_ms * 1e3,
         "train_img_per_s_device": images / dev_ms * 1e3,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
         flush=True)
 
-    launches0 = dict(warp_fused.LAUNCHES)
+    def counts():
+        return {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES}
+    launches0 = counts()
     layers = _layer_ms(step, [batches[i % len(batches)]
                               for i in range(ITERS)])
-    launches = {k: (v - launches0[k]) / ITERS
-                for k, v in warp_fused.LAUNCHES.items()}
-    print(json.dumps({"phase": "train_layers", "batch": batch, "card": smi,
+    launches = {k: (v - launches0[k]) / ITERS for k, v in counts().items()}
+    print(json.dumps({"phase": "train_layers", **tag,
                       "kernel_launches_per_step": launches,
                       "device_ms_per_step": layers}), flush=True)
 
@@ -212,7 +222,7 @@ def profile(batch: int, smi: str) -> None:
         by_cat[cat] = by_cat.get(cat, 0.0) + dev_us / 1e3 / 2
     kernels.sort(reverse=True)
     print(json.dumps({
-        "phase": "train_profile", "batch": batch, "card": smi, "steps": 2,
+        "phase": "train_profile", **tag, "steps": 2,
         "device_ms_per_step_by_category": by_cat, **_idle_share(prof),
         "top_kernels": [{"name": k[:90], "ms_per_step": us / 1e3 / 2,
                          "calls_per_step": c / 2}
@@ -222,6 +232,8 @@ def profile(batch: int, smi: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 32])
+    ap.add_argument("--warp_backend", choices=("matmul", "pallas"),
+                    default="matmul")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -230,7 +242,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     for batch in args.batch:
-        profile(batch, smi)
+        profile(batch, smi, args.warp_backend)
         torch.cuda.empty_cache()
     return 0
 

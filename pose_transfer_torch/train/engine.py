@@ -52,8 +52,12 @@ class GANConfig:
     use_input_pose: bool = True
     warp_skip: str = "mask"        # 'mask' | 'full' | 'none'
     warp_agg: str = "max"          # 'max' | 'avg'
-    # kernel-placed windowed fold: None = auto (on for CUDA and 'max')
+    # kernel-placed windowed fold: None = auto (on for CUDA and 'max'); it
+    # applies to the stages that the 'pallas' backend leaves to 'matmul'
     warp_windowed: bool | None = None
+    # 'matmul' (two-pass banded products) | 'pallas' (the fused two-pass
+    # warp fold, ops/warp_pallas.py); 'exact' is not ported and raises
+    warp_backend: str = "matmul"
     compute_dtype: torch.dtype = torch.float32
     training_ratio: int = 1        # discriminator updates per generator one
     learning_rate: float = 2e-4
@@ -81,7 +85,7 @@ def build_models(config: GANConfig, seed: int = 0,
 
     Windowing follows the JAX package's auto rule: the kernel-placed
     windowed fold is on when the placement kernel runs (a CUDA device) and
-    the fold is a max.
+    the fold is a max. ``warp_backend='exact'`` raises NotImplementedError.
     """
     device = resolve_device(device)
     windowed = config.warp_windowed
@@ -93,7 +97,8 @@ def build_models(config: GANConfig, seed: int = 0,
         nfilters_dec=decoder_filters_for(config.image_size),
         warp_skip=config.warp_skip, warp_agg=config.warp_agg,
         use_input_pose=config.use_input_pose, warp_windowed=windowed,
-        dtype=config.compute_dtype, device="meta")
+        warp_backend=config.warp_backend, dtype=config.compute_dtype,
+        device="meta")
     gen = gen.to_empty(device=device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)

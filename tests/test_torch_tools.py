@@ -67,6 +67,10 @@ def test_kernel_categories():
     assert _category("void (anonymous namespace)::fold_place_kernel"
                      "<float, true>(...)") == "fold_place"
     assert _category("sm90_xmma_gemm_bf16bf16_bf16f32") == "gemm"
+    assert _category("void (anonymous namespace)::warp_fold_kernel"
+                     "<__nv_bfloat16, false>(...)") == "warp_fold"
+    assert _category("void (anonymous namespace)::warp_fold_bwd_kernel"
+                     "<float>(...)") == "warp_fold_bwd"
 
 
 def test_profile_train_batches_drive_a_ratio_2_step():
