@@ -10,7 +10,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               the serving and training paths give it (bitwise; the fused
               fold's backward warp_fold_bwd within a stated tolerance),
               with its time, the plain version's time and the least time
-              for its bytes and operations
+              for its bytes and operations; fold_place_stream over 9 parts
+              in groups of 3 at the windowed stages
   4. serve    the full-width fashion-256 deformable generator (bf16, seeded
               random weights) behind PoseTransferServer: two full batches
               of 8 and a padded partial batch of 3; outputs checked, fold
@@ -30,7 +31,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               per forward and per step, the generator held against the
               matmul backend, the fused fold's f32 gradient held against
               autograd through the plain full scan
-  7. the kernels line, then the last line {"ok": true, "device": {...}}
+  7. stream   the fold microbenchmark's path (pose_transfer_torch.tools
+              .bench_fold) at full width, fashion-256 stage 0 (256²×64,
+              N = 32, bf16, synthetic transforms and masks): the part-group
+              stream through fold_place_stream (3 and 9 groups, with and
+              without the argmax) bitwise against fold_place on one wins
+              stack; the tool's partstream experiment (ms, peak memory,
+              launches counted); its 'xla' and 'kernel' placements at N = 8,
+              forward and feature gradient, held to each other in bf16 and
+              f32
+  8. the kernels line, then the last line {"ok": true, "device": {...}}
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
@@ -55,6 +65,7 @@ from pose_transfer_torch.ops import warp_fused
 from pose_transfer_torch.ops import warp_pallas
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.data.synthetic import synthetic_compact_batch
+from pose_transfer_torch.tools import bench_fold
 from pose_transfer_torch.train.engine import (GANConfig, build_models,
                                               create_state, make_eval_step,
                                               make_train_step)
@@ -68,6 +79,10 @@ TRAIN_STEPS = 3
 # (H = W, C, SY, SX) for skips 256²×64, 128²×128, 64²×256; P = 9 parts
 STAGES = ((256, 64, 128, 144), (128, 128, 64, 80), (64, 256, 32, 48))
 BATCH, PARTS = 8, 9
+STREAM_PG = 3                 # parts per fold_place_stream group (phase 3)
+# phase 7: the fold microbenchmark at fashion-256 stage 0
+STREAM_BATCH, STREAM_GROUPS = 32, (3, 9)
+BENCH_ITERS, BENCH_WARMUP = 3, 1
 # bf16 serving: the kernel-placed and the full-scan fold compute the same
 # taps and the same roundings, so the outputs agree unless cuBLAS sums an
 # einsum in another order and flips a bf16 rounding in a skip (≤ 2^-8
@@ -193,6 +208,20 @@ def route_bytes(h, c, sy, sx, itemsize) -> int:
         + n * h * h * c + 12 * n * p
 
 
+def stream_bytes(offs, h, c, sy, sx, itemsize, with_idx) -> int:
+    """Least bytes of one fold_place_stream launch: the group's wins and
+    mask windows read once, offs, and the state (acc, and the int8 idx)
+    read and written once over the pixels the group's windows cover,
+    counted from ``offs`` on the host (overlaps once)."""
+    n, pg = offs.shape[:2]
+    cover = np.zeros((n, h, h), bool)
+    for i, rows in enumerate(offs.tolist()):
+        for y0, x0, _ in rows:
+            cover[i, y0:y0 + sy, x0:x0 + sx] = True
+    state = 2 * int(cover.sum()) * c * (itemsize + (1 if with_idx else 0))
+    return itemsize * n * pg * sy * sx * (c + 1) + 12 * n * pg + state
+
+
 def _bound(nbytes: int, ops: float) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -215,10 +244,12 @@ def phase_kernels(flush) -> dict:
     """Each kernel against its plain version at the main path's shapes,
     bitwise; the summaries sum one step's variant over the 3 stages
     (fold_place: bf16 without the argmax, as serving runs it; fold_route:
-    bf16)."""
+    bf16; fold_place_stream: a bf16 launch of 3 parts without the argmax,
+    as the partstream experiment runs it)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    main = {"fold_place": _summary(), "fold_route": _summary()}
+    main = {"fold_place": _summary(), "fold_route": _summary(),
+            "fold_place_stream": _summary()}
     for dtype, bits in ((torch.bfloat16, torch.int16),
                         (torch.float32, torch.int32)):
         dname = str(dtype).split(".")[-1]
@@ -277,7 +308,60 @@ def phase_kernels(flush) -> dict:
             m["max_abs_err"] = max(m["max_abs_err"], err)
             if dtype == torch.bfloat16:
                 _add(m, res)
+        for with_idx in (False, True):
+            for h, c, sy, sx in STAGES:
+                res, err = _check_stream(h, c, sy, sx, dtype, bits, with_idx,
+                                         gen, flush)
+                m = main["fold_place_stream"]
+                m["max_abs_err"] = max(m["max_abs_err"], err)
+                if dtype == torch.bfloat16 and not with_idx:
+                    _add(m, res)
     return main
+
+
+def _check_stream(h, c, sy, sx, dtype, bits, with_idx, gen, flush):
+    """fold_place_stream against its plain version over the 9 parts in
+    groups of STREAM_PG, from a state with negatives (and a random argmax):
+    bitwise; ms, plain ms and bound per launch."""
+    body, wins, mwins, _, offs = place_inputs(h, c, sy, sx, dtype, gen)
+    idx0 = torch.randint(-1, PARTS + 1, body.shape, generator=gen,
+                         device="cuda").to(torch.int8) if with_idx else None
+    groups = [tuple(a[:, k:k + STREAM_PG].contiguous()
+                    for a in (wins, mwins, offs))
+              for k in range(0, PARTS, STREAM_PG)]
+
+    def state():
+        return body.clone(), None if idx0 is None else idx0.clone()
+
+    acc, idx = state()
+    ref, ref_idx = state()
+    for grp in groups:
+        warp_fused.fold_place_stream(acc, idx, *grp)
+        warp_fused.fold_place_stream_reference(ref, ref_idx, *grp)
+    torch.cuda.synchronize()
+    same = torch.equal(acc.view(bits), ref.view(bits))
+    if with_idx:
+        same = same and torch.equal(idx, ref_idx)
+    err = (acc.float() - ref.float()).abs().max().item()
+    check(same, f"fold_place_stream bitwise {dtype} idx={with_idx} at "
+          f"{h}x{h}x{c}")
+    # after the first pass the state holds each pixel's max, so repeated
+    # passes read and write the same bytes and leave it unchanged
+    ms = time_cuda(lambda: [warp_fused.fold_place_stream(acc, idx, *g)
+                            for g in groups], 20, flush) / len(groups)
+    plain_ms = time_cuda(lambda: [warp_fused.fold_place_stream_reference(
+        ref, ref_idx, *g) for g in groups], 3, flush) / len(groups)
+    nbytes = sum(stream_bytes(g[2], h, c, sy, sx, acc.element_size(),
+                              with_idx) for g in groups) / len(groups)
+    # operations: one multiply and one compare per window element
+    res = {"ms": ms, "plain_ms": plain_ms,
+           **_bound(nbytes, 2 * BATCH * STREAM_PG * sy * sx * c)}
+    emit({"phase": "kernel", "name": "fold_place_stream",
+          "dtype": str(dtype).split(".")[-1], "idx": with_idx,
+          "shape": {"N": BATCH, "H": h, "W": h, "C": c, "Pg": STREAM_PG,
+                    "groups": len(groups), "SY": sy, "SX": sx},
+          "bitwise_equal": same, "max_abs_err": err, **res})
+    return res, err
 
 
 def warp_inputs(h, c, dtype, gen):
@@ -367,12 +451,15 @@ def warp_bytes(h, c, itemsize, idx_bytes) -> int:
         + (n * h * h * c if idx_bytes else 0)
 
 
-def _bf16_ulps(diff, ref, ulps):
-    """Each element within ``ulps`` bf16 ulps of its own magnitude, or,
-    where parts nearly cancel, within 2^-16 of the largest."""
+def _bf16_within(diff, ref, ulps) -> torch.Tensor:
+    """Which elements lie within ``ulps`` bf16 ulps of their own magnitude,
+    or, where parts nearly cancel, within 2^-16 of the largest."""
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs() + 1e-30)) - 7)
-    return bool(((diff <= ulps * ulp)
-                 | (diff <= 2.0 ** -16 * ref.abs().max())).all())
+    return (diff <= ulps * ulp) | (diff <= 2.0 ** -16 * ref.abs().max())
+
+
+def _bf16_ulps(diff, ref, ulps) -> bool:
+    return bool(_bf16_within(diff, ref, ulps).all())
 
 
 def phase_warp_kernels(flush) -> dict:
@@ -722,6 +809,130 @@ def phase_fold_grad(backend: str = "matmul") -> list:
     return res
 
 
+def phase_fold_stream(card: str) -> int:
+    """The fold microbenchmark's path at full width; returns the
+    fold_place_stream launches of its partstream runs."""
+    dev = torch.device("cuda")
+    image = (256, 256)
+    feats, warps, masks = bench_fold._fold_inputs(
+        STREAM_BATCH, image, 18, 0, torch.bfloat16, dev)
+    masks_r, sel, y0, x0, s_y, s_x = bench_fold._windows(feats, warps, masks)
+    with torch.no_grad():
+        body = (warp_mod._warp_full(feats, warps[:, 0], image)
+                * masks_r[:, 0][..., None]).contiguous()
+        wins = warp_mod._warp_win(feats, warps[:, sel], y0[:, sel],
+                                  x0[:, sel], s_y, s_x, image).contiguous()
+    mwins = warp_mod._slice_win(masks_r[:, sel], y0[:, sel], x0[:, sel], s_y,
+                                s_x).contiguous()
+    offs = warp_mod._place_offs(y0, x0, sel)
+    zero_nb = (masks_r[:, 1:] == 0).any(dim=1)
+    # the stream over part groups, bitwise against the monolithic kernel on
+    # the same wins stack (the caller's body init and zero pass)
+    for with_idx in (False, True):
+        ref, ref_idx = warp_fused.fold_place(body, wins, mwins, zero_nb, offs,
+                                             with_idx)
+        for groups in STREAM_GROUPS:
+            pg = len(sel) // groups
+            acc = body.clone()
+            idx = torch.zeros(acc.shape, dtype=torch.int8, device=dev) \
+                if with_idx else None
+            for k in range(0, len(sel), pg):
+                warp_fused.fold_place_stream(
+                    acc, idx, *(a[:, k:k + pg].contiguous()
+                                for a in (wins, mwins, offs)))
+            take0 = zero_nb[..., None] & (acc < 0)
+            acc.masked_fill_(take0, 0)
+            same = torch.equal(acc.view(torch.int16), ref.view(torch.int16))
+            if with_idx:
+                idx.masked_fill_(take0, -1)
+                same = same and torch.equal(idx, ref_idx)
+            emit({"phase": "fold_stream_vs_fold_place", "groups": groups,
+                  "idx": with_idx, "shape": list(feats.shape),
+                  "bitwise_equal": same})
+            check(same, f"stream of {groups} groups (idx={with_idx}) != "
+                  "fold_place")
+    del body, wins, ref, ref_idx, acc, idx
+
+    _reset_counts()
+    for with_idx in (False, True):
+        for groups in STREAM_GROUPS:
+            for line in bench_fold.partstream(
+                    feats, warps, masks, image, groups, with_idx,
+                    BENCH_ITERS, BENCH_WARMUP):
+                emit({"phase": "fold_stream_partstream", **line,
+                      "card": card})
+    counts = _counts()
+    # per argmax setting (2) each leg runs once for its peak memory, then
+    # its warm-up and timed calls; a stream call launches once per group
+    calls = 2 * (1 + BENCH_WARMUP + BENCH_ITERS)
+    check(counts["fold_place_stream"] == calls * sum(STREAM_GROUPS)
+          and counts["fold_place"] == calls * len(STREAM_GROUPS),
+          f"partstream launches {counts}")
+    stream_launches = counts["fold_place_stream"]
+
+    # the windowed fold's two placements, forward and feature gradient.
+    # The forwards are held to the fold output limits (BF16_MAX_ABS,
+    # BF16_MEAN_ABS, F32_MAX_ABS). The gradients of the fold's sum reach
+    # ~400 here, where an absolute 0.05 is below one bf16 ulp; they are held
+    # as this script holds fold gradients, all but GRAD_FLIP_SHARE of the
+    # elements within BWD_BF16_ULPS bf16 ulps of their own magnitude (bf16)
+    # or GRAD_REL_TOL of the largest (f32). The share is for ties: the
+    # kernel's windows are wider, so where the running max is negative an
+    # earlier part's zero-mask column places a ±0, and a later part whose
+    # warp is exactly 0 there (bf16 sums do cancel) no longer wins it, as
+    # it does under the (h/2, w/2) windows: both valid subgradients at an
+    # exact-zero tie (3 output elements, 11 gradient elements, at b8 stage
+    # 0 bf16 on an H100; f32 bitwise equal).
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        f = feats[:BATCH].to(dtype)
+        mk = masks[:BATCH].to(dtype)
+        for mode in ("fwd", "grad"):
+            got = {}
+            for variant in ("xla", "kernel"):
+                call = bench_fold.variant_fold(variant, mode, f,
+                                               warps[:BATCH], mk, image, 18)
+                _reset_counts()
+                got[variant] = call()
+                one = _counts()
+                ms = bench_fold.time_call(call, BENCH_ITERS, BENCH_WARMUP,
+                                          dev)
+                kernel = variant == "kernel"
+                placed = (one["fold_place"], one["fold_place_idx"],
+                          one["fold_route"])
+                want = (1, int(mode == "grad"), int(mode == "grad")) \
+                    if kernel else (0, 0, 0)
+                check(one["scan_fallback"] == 0 and placed == want,
+                      f"{variant} {mode} placement launches {one}")
+                emit({"phase": "fold_stream_variant", "variant": variant,
+                      "mode": mode, "batch": BATCH, "stage": 0,
+                      "dtype": dname, "ms_per_call": ms,
+                      "fold_place_launches": one["fold_place"],
+                      "fold_route_launches": one["fold_route"],
+                      "card": card})
+            ref = got["kernel"].float()
+            diff = (got["xla"].float() - ref).abs()
+            scale = ref.abs().max().item()
+            res = {"phase": "fold_stream_xla_vs_kernel", "mode": mode,
+                   "dtype": dname, "max_abs_diff": diff.max().item(),
+                   "mean_abs_diff": diff.mean().item(), "max_abs_ref": scale,
+                   "elements_differing": int((diff > 0).sum().item()),
+                   "elements": diff.numel()}
+            if mode == "fwd" and dtype == torch.bfloat16:
+                ok = res["max_abs_diff"] <= BF16_MAX_ABS \
+                    and res["mean_abs_diff"] <= BF16_MEAN_ABS
+            elif mode == "fwd":
+                ok = res["max_abs_diff"] <= F32_MAX_ABS
+            else:
+                over = ~_bf16_within(diff, ref, BWD_BF16_ULPS) \
+                    if dtype == torch.bfloat16 else diff > GRAD_REL_TOL * scale
+                res["elements_over_tol"] = int(over.sum().item())
+                ok = res["elements_over_tol"] <= GRAD_FLIP_SHARE * diff.numel()
+            emit({**res, "within_tolerance": ok})
+            check(ok, f"{dname} {mode}: xla vs kernel placement")
+    return stream_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -758,6 +969,7 @@ def main() -> int:
     pallas_serve = phase_serve(smi, "pallas")
     pallas_train = phase_train(smi, "pallas")
     phase_fold_grad("pallas")
+    stream_launches = phase_fold_stream(smi)
 
     tpu = "pose_transfer_tpu/ops/"
     rows = (
@@ -772,6 +984,8 @@ def main() -> int:
         # the backward's two transposed passes (:288, :307), fused
         ("warp_fold_bwd", pallas_train["warp_fold_bwd"],
          tpu + "warp_pallas.py:288", [tpu + "warp_pallas.py:307"]),
+        ("fold_place_stream", stream_launches,
+         tpu + "warp_fused.py:300", []),
     )
     kernels = []
     for name, launches, replaces, also in rows:

@@ -1,6 +1,7 @@
 """Device-side batch preparation: compact host batch → model-ready tensors.
 
-Counterpart of the baseline branch of ``pose_transfer_tpu/data/device.py``.
+Counterpart of the baseline branch of ``pose_transfer_tpu/data/device.py``
+and of its ``masks_from_polys``.
 The host ships uint8 images, (K, 2) keypoints and compact warp/mask
 descriptions; heatmaps and part masks are rasterized on the device.
 """
@@ -60,3 +61,10 @@ def make_batch_preparer(*, image_size: tuple[int, int], pose_dim: int,
         return out
 
     return prepare
+
+
+def masks_from_polys(polys: torch.Tensor, kinds: torch.Tensor,
+                     image_size: tuple[int, int]) -> torch.Tensor:
+    """(N, T, 4, 2) polys + (N, T) kinds → (N, T, H, W) float32 part masks,
+    on ``polys``' device (the JAX package's ``masks_from_polys``)."""
+    return rasterize_part_masks(polys, kinds, image_size)

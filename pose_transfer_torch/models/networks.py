@@ -34,7 +34,8 @@ from torch import nn
 from ..core import pose as pose_ops
 from ..core import transforms_host as th
 from ..ops.norm import volume_instance_norm
-from ..ops.warp import affine_transform_layer, check_backend, plan_folds
+from ..ops.warp import (affine_transform_layer, check_backend, check_place,
+                        plan_folds)
 
 
 def encoder_filters_for(image_size: tuple[int, int]) -> tuple[int, ...]:
@@ -186,7 +187,9 @@ class DeformableGenerator(nn.Module):
     warps (N, T, 8), masks (N, T, H, W) or None → (N, H, W, 3) in [-1, 1].
     The appearance skips of the first ``num_warp_stages`` stages go
     through ``affine_transform_layer``; ``warp_backend`` 'pallas' sends the
-    stages the fused warp fold supports to it (``ops/warp_pallas.py``).
+    stages the fused warp fold supports to it (``ops/warp_pallas.py``);
+    ``warp_place`` ('auto' | 'kernel' | 'xla') chooses the windowed fold's
+    placement (``ops.warp.plan_folds``).
     """
 
     def __init__(self, pose_dim: int, image_size: tuple[int, int],
@@ -194,9 +197,11 @@ class DeformableGenerator(nn.Module):
                  warp_skip: str = "mask", warp_agg: str = "max",
                  use_input_pose: bool = True, num_warp_stages: int = 4,
                  warp_windowed: bool = False, warp_backend: str = "matmul",
+                 warp_place: str = "auto",
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         check_backend(warp_backend)
+        check_place(warp_place)
         self.pose_dim = pose_dim
         self.image_size = tuple(image_size)
         self.warp_skip = warp_skip
@@ -205,6 +210,7 @@ class DeformableGenerator(nn.Module):
         self.num_warp_stages = num_warp_stages
         self.warp_windowed = warp_windowed
         self.warp_backend = warp_backend
+        self.warp_place = warp_place
         self.dtype = dtype
         # without the input pose the packed input is [image ‖ target pose]
         # and get_imgpose's target slice starts at 6: K - 3 channels
@@ -237,7 +243,7 @@ class DeformableGenerator(nn.Module):
         plans = plan_folds([tuple(f.shape) for f in feats], warps, masks,
                            self.dtype, self.warp_skip, self.warp_agg,
                            self.warp_windowed, static_empty,
-                           self.warp_backend)
+                           self.warp_backend, self.warp_place)
         skips = []
         for i, (sk_app, sk_pose) in enumerate(zip(skips_app, skips_pose)):
             if i < n_warp:

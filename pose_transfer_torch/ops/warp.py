@@ -11,13 +11,22 @@ banded-matrix products — NOT ``grid_sample``: for a transform with
 m10 ≠ 0 the vertical taps are evaluated at the source column, which differs
 from direct bilinear sampling by up to |m10| px. Same math, same numbers.
 
-Two fold paths, chosen per fold instance:
+Three fold paths, chosen per fold instance:
 - the full scan (``_fold_scan``): every part warped at full resolution,
   folded in order with strict ``>`` (earliest part wins ties);
 - the windowed, kernel-placed fold (``_fold_windowed_place``): the body at
   full resolution, every other part only inside its mask's bounding-box
   window, placed by ``ops.warp_fused.fold_place``. Exact: outside its window
-  a part's masked contribution is zero, which the zero pass restores.
+  a part's masked contribution is zero, which the zero pass restores;
+- the windowed fold with XLA-style placement (``_fold_windowed``, the JAX
+  package's ``place_impl='xla'``): the same windows, (h/2, w/2) and
+  unaligned, placed part by part by a gather, compare and scatter of each
+  window in plain PyTorch; the only windowed fold for ``warp_agg='avg'``.
+``place_impl`` chooses between the two windowed placements: 'xla' always
+the gather/scatter one; 'auto' and 'kernel' the placement kernel where the
+shape qualifies (``_use_place_kernel``), else the gather/scatter one. (The
+JAX package's 'auto' takes the kernel only on a TPU; the port's kernel runs
+wherever the fold runs, so 'auto' is 'kernel'.)
 The windowed fold needs every non-body part's support to fit its window.
 The JAX package decides that with one ``lax.cond`` per fold instance; here
 ``plan_folds`` decides it for all fold instances of a forward with one host
@@ -26,7 +35,7 @@ sync.
 The backward (``WarpFold``, the counterpart of ``warp_fold_matmul``'s custom
 VJP) saves no feature maps: the warp is linear in the features, so it
 routes the cotangent through the argmax and the transposed two-pass warps,
-rebuilding the banded weights. The windowed branch routes with the
+rebuilding the banded weights. The kernel-placed branch routes with the
 ``fold_route`` kernel; warps and masks get no gradient (host data).
 
 ``backend='pallas'`` (the JAX package's ``warp_backend='pallas'``) sends
@@ -247,6 +256,17 @@ def _windowable(h: int, w: int) -> bool:
     return not (h % 2 or w % 2 or min(h // 2, w // 2) < 32)
 
 
+def _fold_windows(masks_r, h: int, w: int, windowed: bool, x_align: int = 1,
+                  sizes=None):
+    """The ``_support_windows`` tuple when windowing applies (masks and a
+    ``_windowable`` shape), else None; ``sizes`` overrides the (h//2, w//2)
+    windows (the placement kernel widens s_x)."""
+    if not windowed or masks_r is None or not _windowable(h, w):
+        return None
+    s_y, s_x = sizes if sizes is not None else (h // 2, w // 2)
+    return _support_windows(masks_r, s_y, s_x, x_align)
+
+
 def _kernel_window_sizes(h: int, w: int):
     """(s_y, s_x) of the placement kernel's windows, or None: s_x is
     widened by X_ALIGN so that an aligned start still covers any support
@@ -263,17 +283,32 @@ def _place_actives(t: int, static_empty: tuple[int, ...]) -> tuple[int, ...]:
     return tuple(i for i in range(1, t) if i not in static_empty)
 
 
-def _use_place_kernel(h, w, c, t, warp_agg, has_masks, windowed,
+PLACE_IMPLS = ("auto", "kernel", "xla")
+
+
+def _use_place_kernel(place_impl, h, w, c, t, warp_agg, has_masks, windowed,
                       static_empty) -> bool:
     """Whether this fold instance may take the windowed, kernel-placed
-    fold (before the data-dependent fit check)."""
-    if not windowed or not has_masks or warp_agg != "max":
+    fold (before the data-dependent fit check); 'xla' never does."""
+    if place_impl == "xla" or not windowed or not has_masks \
+            or warp_agg != "max":
         return False
     if not _windowable(h, w):
         return False
     sizes = _kernel_window_sizes(h, w)
     return sizes is not None and warp_fused.supported(h, w, c, *sizes) \
         and bool(_place_actives(t, static_empty))
+
+
+def _win_at(y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int):
+    """Advanced index of the (N, P) windows of an (N, h, w[, C]) map:
+    ``x[_win_at(...)]`` gathers (N, P, S_y, S_x[, C]) and assigning to it
+    scatters back."""
+    dev = y0.device
+    rows = y0[..., None] + torch.arange(s_y, device=dev)     # (N, P, S_y)
+    cols = x0[..., None] + torch.arange(s_x, device=dev)     # (N, P, S_x)
+    ni = torch.arange(y0.shape[0], device=dev)[:, None, None, None]
+    return ni, rows[..., :, None], cols[..., None, :]
 
 
 def _slice_win(x: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
@@ -333,6 +368,15 @@ def _fold_scan(features, warps, masks_r, init_image_size, warp_agg,
     return (acc / t).to(features.dtype), None
 
 
+def _place_offs(y0: torch.Tensor, x0: torch.Tensor, sel) -> torch.Tensor:
+    """(N, P, 3) int32 [y0, x0, part_index] rows of the parts ``sel`` for
+    the placement kernels, from (N, T) window starts."""
+    ys, xs = y0[:, sel], x0[:, sel]
+    parts = torch.tensor(sel, dtype=ys.dtype, device=ys.device)
+    return torch.stack([ys, xs, parts.expand(ys.shape[0], -1)], dim=-1) \
+        .to(torch.int32).contiguous()
+
+
 def _place_args(masks_r, windows, h, w, t, static_empty):
     """The placed parts' shared inputs of ``fold_place`` and
     ``fold_route``: (sel, mwins, offs) — the active part indices, their
@@ -340,12 +384,9 @@ def _place_args(masks_r, windows, h, w, t, static_empty):
     y0, x0 = windows
     s_y, s_x = _kernel_window_sizes(h, w)
     sel = list(_place_actives(t, static_empty))
-    ys, xs = y0[:, sel], x0[:, sel]
-    mwins = _slice_win(masks_r[:, sel], ys, xs, s_y, s_x).contiguous()
-    parts = torch.tensor(sel, dtype=ys.dtype, device=ys.device)
-    offs = torch.stack([ys, xs, parts.expand(ys.shape[0], -1)], dim=-1) \
-        .to(torch.int32).contiguous()
-    return sel, mwins, offs
+    mwins = _slice_win(masks_r[:, sel], y0[:, sel], x0[:, sel], s_y,
+                       s_x).contiguous()
+    return sel, mwins, _place_offs(y0, x0, sel)
 
 
 def _fold_windowed_place(features, warps, masks_r, init_image_size,
@@ -400,6 +441,94 @@ def _fold_windowed_place_bwd(g, warps, masks_r, idx, init_image_size,
     return df0 + dfp
 
 
+def _fold_windowed(features, warps, masks_r, init_image_size, warp_agg,
+                   windows, static_empty=(), emit_idx=True):
+    """Windowed fold with XLA-style placement → (out, idx).
+
+    The body (part 0, masked) at full resolution; every other active part
+    only inside its (h/2, w/2) window, warped on its own, masked, and
+    placed in fold order: its window of the running max is gathered,
+    compared (strict ``>``: the earliest part keeps ties) and scattered
+    back, batched over the samples. 'max': a final zero pass where some
+    non-body part contributes an exact zero (every pixel under
+    ``static_empty``) and the max is negative, idx -1 there; idx int8 holds
+    ORIGINAL part indices. 'avg': an f32 sum of the masked windows, divided
+    by the FULL part count; idx None.
+    """
+    n, h, w, c = features.shape
+    t = warps.shape[1]
+    y0, x0 = windows
+    s_y, s_x = h // 2, w // 2
+    sel = _place_actives(t, static_empty)
+    body = _warp_full(features, warps[:, 0], init_image_size) \
+        * masks_r[:, 0][..., None]
+    if warp_agg == "max":
+        acc = body
+        idx = torch.zeros(acc.shape, dtype=torch.int8,
+                          device=acc.device) if emit_idx else None
+    else:
+        acc = body.float()
+        idx = None
+    for i in sel:
+        yi, xi = y0[:, i:i + 1], x0[:, i:i + 1]
+        win = _warp_win(features, warps[:, i:i + 1], yi, xi, s_y, s_x,
+                        init_image_size)
+        win = win * _slice_win(masks_r[:, i:i + 1], yi, xi, s_y,
+                               s_x)[..., None]
+        at = _win_at(yi, xi, s_y, s_x)
+        cur = acc[at]
+        if warp_agg != "max":
+            acc[at] = cur + win.float()
+            continue
+        take = win > cur
+        acc[at] = torch.where(take, win, cur)
+        if emit_idx:
+            idx[at] = torch.where(take, torch.full_like(idx[at], i), idx[at])
+    if warp_agg != "max":
+        return (acc / t).to(features.dtype), None
+    if static_empty:
+        # a statically-empty part contributes zero at EVERY pixel
+        zero_exists = torch.ones((n, h, w), dtype=torch.bool,
+                                 device=acc.device)
+    else:
+        zero_exists = (masks_r[:, 1:] == 0).any(dim=1)
+    take0 = zero_exists[..., None] & (acc < 0)
+    acc = acc.masked_fill(take0, 0)
+    if emit_idx:
+        idx.masked_fill_(take0, -1)
+    return acc, idx
+
+
+def _fold_windowed_bwd(g, warps, masks_r, idx, init_image_size, warp_agg,
+                       windows, static_empty=()):
+    """Backward of ``_fold_windowed`` → f32 feature gradient: the body's
+    cotangent (g where idx is 0 for 'max', g/T for 'avg', times its mask)
+    through the full-map transposed warp; each active part's window of the
+    cotangent (g where idx is its ORIGINAL index, or g/T, times its mask
+    window) through one joint transposed warp over the parts."""
+    _, h, w, _ = g.shape
+    t = warps.shape[1]
+    y0, x0 = windows
+    s_y, s_x = h // 2, w // 2
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    gm0 = torch.where(idx == 0, g, zero) if warp_agg == "max" else g / t
+    df0 = _warp_full_t(gm0 * masks_r[:, 0][..., None], warps[:, 0],
+                       init_image_size).float()
+    sel = list(_place_actives(t, static_empty))
+    if not sel:
+        return df0
+    ys, xs = y0[:, sel], x0[:, sel]
+    at = _win_at(ys, xs, s_y, s_x)
+    if warp_agg == "max":
+        parts = torch.tensor(sel, dtype=idx.dtype, device=g.device)
+        gm = torch.where(idx[at] == parts[:, None, None, None], g[at], zero)
+    else:
+        gm = g[at] / t
+    gm = gm * _slice_win(masks_r[:, sel], ys, xs, s_y, s_x)[..., None]
+    return df0 + _warp_win_t(gm, warps[:, sel], ys, xs, h, w,
+                             init_image_size, joint=True)
+
+
 def _fold_scan_bwd(g, warps, masks_r, idx, init_image_size, warp_agg,
                    static_empty=()):
     """Backward of ``_fold_scan`` → f32 feature gradient: each active
@@ -421,11 +550,20 @@ def _fold_scan_bwd(g, warps, masks_r, idx, init_image_size, warp_agg,
 @dataclasses.dataclass
 class FoldPlan:
     """One fold instance's inputs that depend only on the masks: the
-    resized masks and, when the windowed fold applies, its window starts."""
+    resized masks and, when the windowed fold applies, its window starts
+    and placement."""
     masks_r: torch.Tensor | None
     windows: tuple[torch.Tensor, torch.Tensor] | None = None
     fits: bool = False
     pallas: bool = False       # the fused two-pass warp fold
+    xla: bool = False          # windows placed by _fold_windowed
+
+
+def check_place(place_impl: str) -> None:
+    """Raise on an unknown windowed placement."""
+    if place_impl not in PLACE_IMPLS:
+        raise ValueError(f"invalid place_impl {place_impl!r}; one of "
+                         f"{PLACE_IMPLS}")
 
 
 def check_backend(backend: str) -> None:
@@ -443,16 +581,21 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
                dtype: torch.dtype, warp_skip: str = "mask",
                warp_agg: str = "max", windowed: bool = False,
                static_empty: tuple[int, ...] = (),
-               backend: str = "matmul") -> list[FoldPlan]:
+               backend: str = "matmul",
+               place_impl: str = "auto") -> list[FoldPlan]:
     """Plan the fold instances of one forward, one per (N, h, w, C) shape.
 
     Resizes the masks for every instance, marks the instances that take the
     fused warp fold (``backend='pallas'``: a supported shape and a max
     fold; they need no windows), computes every other windowed instance's
-    support windows, and resolves all 'does every non-body part fit its
-    window?' flags with ONE host sync.
+    support windows for its placement (``place_impl``: the kernel's widened,
+    aligned windows, or the (h/2, w/2) ones of the XLA-style placement), and
+    resolves all 'does every non-body part fit its window?' flags with ONE
+    host sync. A fold whose parts do not all fit takes the full scan, where
+    the JAX package's ``lax.cond`` takes it.
     """
     check_backend(backend)
+    check_place(place_impl)
     plans, pending = [], []
     t = warps.shape[1]
     for n, h, w, c in shapes:
@@ -466,13 +609,18 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
         if backend == "pallas" and warp_agg == "max" \
                 and warp_pallas.supported(h, w):
             plan.pallas = True
-        elif _use_place_kernel(h, w, c, t, warp_agg, masks_r is not None,
-                               windowed, static_empty):
-            s_y, s_x = _kernel_window_sizes(h, w)
-            y0, x0, fits, _ = _support_windows(masks_r, s_y, s_x,
-                                               warp_fused.X_ALIGN)
-            plan.windows = (y0, x0)
-            pending.append((plan, fits[:, 1:].all()))
+        else:
+            kernel = _use_place_kernel(place_impl, h, w, c, t, warp_agg,
+                                       masks_r is not None, windowed,
+                                       static_empty)
+            windows = _fold_windows(masks_r, h, w, windowed,
+                                    warp_fused.X_ALIGN,
+                                    _kernel_window_sizes(h, w)) if kernel \
+                else _fold_windows(masks_r, h, w, windowed)
+            if windows is not None:
+                y0, x0, fits, _ = windows
+                plan.windows, plan.xla = (y0, x0), not kernel
+                pending.append((plan, fits[:, 1:].all()))
         plans.append(plan)
     if pending:
         flags = torch.stack([f for _, f in pending]).tolist()
@@ -508,9 +656,16 @@ def _fold(features, warps, plan, init_image_size, warp_agg, static_empty,
         return out, idx, False
     if plan.windows is not None:
         if plan.fits:
-            out, idx = _fold_windowed_place(features, warps, plan.masks_r,
-                                            init_image_size, plan.windows,
-                                            static_empty, emit_idx)
+            if plan.xla:
+                out, idx = _fold_windowed(features, warps, plan.masks_r,
+                                          init_image_size, warp_agg,
+                                          plan.windows, static_empty,
+                                          emit_idx)
+            else:
+                out, idx = _fold_windowed_place(features, warps,
+                                                plan.masks_r, init_image_size,
+                                                plan.windows, static_empty,
+                                                emit_idx)
             return out, idx, True
         COUNTS["scan_fallback"] += 1
     out, idx = _fold_scan(features, warps, plan.masks_r, init_image_size,
@@ -536,6 +691,7 @@ class WarpFold(torch.autograd.Function):
         y0, x0 = plan.windows if windowed else (None, None)
         ctx.save_for_backward(warps, plan.masks_r, idx, y0, x0)
         ctx.windowed = windowed
+        ctx.xla = plan.xla
         ctx.args = (init_image_size, warp_agg, static_empty)
         return out
 
@@ -547,7 +703,10 @@ class WarpFold(torch.autograd.Function):
         # kernel takes a contiguous, 16-byte aligned map
         if not g.is_contiguous() or g.data_ptr() % 16:
             g = g.clone(memory_format=torch.contiguous_format)
-        if ctx.windowed:
+        if ctx.windowed and ctx.xla:
+            df = _fold_windowed_bwd(g, warps, masks_r, idx, init_image_size,
+                                    warp_agg, (y0, x0), static_empty)
+        elif ctx.windowed:
             df = _fold_windowed_place_bwd(g, warps, masks_r, idx,
                                           init_image_size, (y0, x0),
                                           static_empty)
@@ -565,7 +724,8 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
                            windowed: bool = False,
                            static_empty: tuple[int, ...] = (),
                            plan: FoldPlan | None = None,
-                           backend: str = "matmul") -> torch.Tensor:
+                           backend: str = "matmul",
+                           place_impl: str = "auto") -> torch.Tensor:
     """Warp + (mask) + aggregate over the T part transforms.
 
     Differentiable in ``features`` (``WarpFold``, or ``WarpFoldPallas`` on
@@ -581,12 +741,14 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
         ``warp_skip='mask'``, ignored otherwise).
       warp_skip: 'mask' | 'full' | 'none' ('none' still warps, unmasked).
       warp_agg: 'max' or 'avg'.
-      windowed: take the kernel-placed windowed fold where the shape
-        qualifies and every part's support fits its window.
+      windowed: take a windowed fold where the shape qualifies and every
+        part's support fits its window.
       static_empty: part indices that are empty for every input (the
         fused branch folds every part, as in the JAX package).
       plan: this instance's ``plan_folds`` entry (computed here if None).
       backend: 'matmul' or 'pallas' (read only when ``plan`` is None).
+      place_impl: the windowed placement, 'auto', 'kernel' or 'xla' (read
+        only when ``plan`` is None).
 
     Returns:
       (N, h, w, C) aggregated warped features.
@@ -594,7 +756,7 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
     if plan is None:
         plan = plan_folds([tuple(features.shape)], warps, masks,
                           features.dtype, warp_skip, warp_agg, windowed,
-                          static_empty, backend)[0]
+                          static_empty, backend, place_impl)[0]
     if torch.is_grad_enabled() and features.requires_grad:
         if plan.pallas:
             return warp_pallas.WarpFoldPallas.apply(*_pallas_args(

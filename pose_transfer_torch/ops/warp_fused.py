@@ -1,24 +1,29 @@
-"""The fold's window kernels: ``fold_place`` (forward) and ``fold_route``
-(backward).
+"""The fold's window kernels: ``fold_place`` (forward), ``fold_route``
+(backward) and ``fold_place_stream`` (the forward, one part group at a
+time).
 
-Counterpart of ``pose_transfer_tpu/ops/warp_fused.py::fold_place`` and
-``::fold_route``. The deformable warp fold is max_t(warp_t(features)·mask_t);
-the windowed fold computes each non-body part's warp only inside its mask's
-bounding-box window, and ``fold_place`` places those windows into the
-running max (and argmax), multiplies in the mask windows and applies the
-final zero-contribution pass. ``fold_route`` is its backward router: it
-sends the cotangent of every pixel to the part that won it (the argmax),
-times that part's mask, as per-part window cotangents and a body route.
+Counterpart of ``pose_transfer_tpu/ops/warp_fused.py::fold_place``,
+``::fold_route`` and ``::fold_place_stream``. The deformable warp fold is
+max_t(warp_t(features)·mask_t); the windowed fold computes each non-body
+part's warp only inside its mask's bounding-box window, and ``fold_place``
+places those windows into the running max (and argmax), multiplies in the
+mask windows and applies the final zero-contribution pass. ``fold_route`` is
+its backward router: it sends the cotangent of every pixel to the part that
+won it (the argmax), times that part's mask, as per-part window cotangents
+and a body route. ``fold_place_stream`` places one group of parts into an
+existing (running max, argmax) state, in place, with no body init and no
+zero pass: a caller that warps the parts group by group never holds every
+part's windows at once (``tools/bench_fold.py --experiment partstream``).
 
 Three pieces for each kernel, as for every kernel of the port:
-- the wrapper (``fold_place``, ``fold_route``). A CPU tensor takes the
-  plain version; a CUDA tensor launches the hand-written kernel
-  (``csrc/fold_place.cu``, ``csrc/fold_route.cu``, built by
-  ``pose_transfer_torch._build``) or raises. No path falls back from the
-  kernel to the plain version. Neither output carries a gradient, so both
-  wrappers refuse, under grad mode, an input that requires grad: the fold
-  is differentiated by ``ops.warp.WarpFold``, which calls them with grad
-  mode off.
+- the wrapper (``fold_place``, ``fold_route``, ``fold_place_stream``). A CPU
+  tensor takes the plain version; a CUDA tensor launches the hand-written
+  kernel (``csrc/fold_place.cu``, ``csrc/fold_route.cu``,
+  ``csrc/fold_place_stream.cu``, built by ``pose_transfer_torch._build``)
+  or raises. No path falls back from the kernel to the plain version. No
+  output carries a gradient, so the wrappers refuse, under grad mode, an
+  input that requires grad: the fold is differentiated by
+  ``ops.warp.WarpFold``, which calls them with grad mode off.
 - the plain PyTorch version (``*_reference``), same semantics.
 - ``LAUNCHES``: how many times each CUDA kernel was launched
   (``fold_place_idx`` counts the ``fold_place`` launches that emitted the
@@ -41,7 +46,8 @@ import torch
 X_ALIGN = 16
 RCH = 8          # window rows must be a multiple of this
 
-LAUNCHES = {"fold_place": 0, "fold_place_idx": 0, "fold_route": 0}
+LAUNCHES = {"fold_place": 0, "fold_place_idx": 0, "fold_route": 0,
+            "fold_place_stream": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,23 +62,10 @@ def fold_place_reference(body: torch.Tensor, wins: torch.Tensor,
                          mwins: torch.Tensor, zero_nb: torch.Tensor,
                          offs: torch.Tensor, emit_idx: bool = True):
     """Plain PyTorch version of ``fold_place`` (same arguments/results)."""
-    n, _, _, _ = body.shape
-    p, sy, sx = wins.shape[1:4]
     out = body.clone()
     idx = torch.zeros(body.shape, dtype=torch.int8, device=body.device) \
         if emit_idx else None
-    for i, rows in enumerate(offs.tolist()):
-        for j, (y0, x0, part) in enumerate(rows):
-            win = (slice(y0, y0 + sy), slice(x0, x0 + sx))
-            cur = out[i][win]
-            # multiply in f32, round to the compute dtype BEFORE the compare
-            z = (wins[i, j].float() * mwins[i, j].float()[..., None]) \
-                .to(out.dtype)
-            take = z.float() > cur.float()        # strict: earliest part wins
-            out[i][win] = torch.where(take, z, cur)
-            if emit_idx:
-                idx[i][win] = torch.where(
-                    take, torch.full_like(idx[i][win], part), idx[i][win])
+    fold_place_stream_reference(out, idx, wins, mwins, offs)
     # zero pass: where some non-body part contributes an exact zero and the
     # running max is negative, zero wins (idx -1)
     take0 = zero_nb[..., None] & (out.float() < 0)
@@ -81,6 +74,27 @@ def fold_place_reference(body: torch.Tensor, wins: torch.Tensor,
     if emit_idx:
         idx = torch.where(take0, torch.full_like(idx, -1), idx)
     return out, idx
+
+
+def fold_place_stream_reference(acc: torch.Tensor, idx: torch.Tensor | None,
+                                wins: torch.Tensor, mwins: torch.Tensor,
+                                offs: torch.Tensor):
+    """Plain PyTorch version of ``fold_place_stream``: the part loop of
+    ``fold_place``, writing into ``acc`` (and ``idx``) in place."""
+    sy, sx = wins.shape[2:4]
+    for i, rows in enumerate(offs.tolist()):
+        for j, (y0, x0, part) in enumerate(rows):
+            win = (slice(y0, y0 + sy), slice(x0, x0 + sx))
+            cur = acc[i][win]
+            # multiply in f32, round to the compute dtype BEFORE the compare
+            z = (wins[i, j].float() * mwins[i, j].float()[..., None]) \
+                .to(acc.dtype)
+            take = z.float() > cur.float()        # strict: earliest part wins
+            if idx is not None:
+                idx[i][win] = torch.where(
+                    take, torch.full_like(idx[i][win], part), idx[i][win])
+            acc[i][win] = torch.where(take, z, cur)
+    return acc, idx
 
 
 def fold_route_reference(g: torch.Tensor, idx: torch.Tensor,
@@ -159,6 +173,36 @@ def _check_route(g, idx, mask0, mwins, offs):
         raise ValueError("fold_route: window larger than the feature map")
     if not 1 <= p <= 32:
         raise ValueError(f"fold_route: needs 1 <= P <= 32, got P={p}")
+    return n, h, w, c, p, sy, sx
+
+
+def _check_stream(acc, idx, wins, mwins, offs):
+    if acc.ndim != 4:
+        raise ValueError(f"fold_place_stream: acc must be (N, H, W, C), got "
+                         f"{tuple(acc.shape)}")
+    n, h, w, c = acc.shape
+    if acc.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fold_place_stream: unsupported dtype {acc.dtype}")
+    if wins.dtype != acc.dtype or mwins.dtype != acc.dtype:
+        raise TypeError("fold_place_stream: acc, wins and mwins must share a "
+                        "dtype")
+    if (idx is not None and idx.dtype != torch.int8) \
+            or offs.dtype != torch.int32:
+        raise TypeError("fold_place_stream: idx must be int8 and offs int32")
+    if wins.ndim != 5 or wins.shape[0] != n or wins.shape[4] != c:
+        raise ValueError(f"fold_place_stream: wins {tuple(wins.shape)} does "
+                         f"not match acc {tuple(acc.shape)}")
+    p, sy, sx = wins.shape[1:4]
+    if (idx is not None and idx.shape != acc.shape) \
+            or tuple(mwins.shape) != (n, p, sy, sx) \
+            or tuple(offs.shape) != (n, p, 3):
+        raise ValueError("fold_place_stream: idx/mwins/offs shapes do not "
+                         "match")
+    if sy > h or sx > w:
+        raise ValueError("fold_place_stream: window larger than the feature "
+                         "map")
+    if not 1 <= p <= 32:
+        raise ValueError(f"fold_place_stream: needs 1 <= P <= 32, got P={p}")
     return n, h, w, c, p, sy, sx
 
 
@@ -286,3 +330,38 @@ def fold_route(g: torch.Tensor, idx: torch.Tensor, mask0: torch.Tensor,
             n, h, w, c, p, sy, sx, _DTYPE_CODES[g.dtype])
     LAUNCHES["fold_route"] += 1
     return gwins, gbody
+
+
+def fold_place_stream(acc: torch.Tensor, idx: torch.Tensor | None,
+                      wins: torch.Tensor, mwins: torch.Tensor,
+                      offs: torch.Tensor):
+    """Fold one part group into the (acc, idx) state, in place.
+
+    The caller initialises the state from the pre-masked body warp (idx 0)
+    and applies the zero pass after the last group; over all groups in fold
+    order the result equals ``fold_place`` on the whole stack.
+
+    Args:
+      acc: (N, H, W, C) running max, float32 or bfloat16; updated in place.
+      idx: (N, H, W, C) int8 running argmax, updated in place, or None (the
+        primal-only stream).
+      wins: (N, Pg, SY, SX, C) UNMASKED windowed warps of the group's
+        parts, in fold order.
+      mwins: (N, Pg, SY, SX) their resized-mask windows.
+      offs: (N, Pg, 3) int32 [y0, x0, part_index]; windows in bounds.
+
+    Returns:
+      (acc, idx): the same tensors, updated.
+    """
+    n, h, w, c, p, sy, sx = _check_stream(acc, idx, wins, mwins, offs)
+    tensors = tuple(t for t in (acc, idx, wins, mwins, offs) if t is not None)
+    _refuse_grad("fold_place_stream", tensors)
+    if not _on_card("fold_place_stream", tensors, c):
+        return fold_place_stream_reference(acc, idx, wins, mwins, offs)
+    lib = _kernel_lib("fold_place_stream", 5, 8)
+    _launch("fold_place_stream", lib, acc.device,
+            acc.data_ptr(), idx.data_ptr() if idx is not None else None,
+            wins.data_ptr(), mwins.data_ptr(), offs.data_ptr(),
+            n, h, w, c, p, sy, sx, _DTYPE_CODES[acc.dtype])
+    LAUNCHES["fold_place_stream"] += 1
+    return acc, idx

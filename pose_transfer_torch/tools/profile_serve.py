@@ -49,7 +49,7 @@ REQUESTS = 384    # requests per serving load: tails from hundreds, not tens
 
 def _category(name: str) -> str:
     n = name.lower()
-    for kernel in ("warp_fold_bwd", "warp_fold"):
+    for kernel in ("warp_fold_bwd", "warp_fold", "fold_place_stream"):
         if kernel in n:
             return kernel
     if "fold_place" in n:

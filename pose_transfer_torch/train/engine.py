@@ -52,9 +52,12 @@ class GANConfig:
     use_input_pose: bool = True
     warp_skip: str = "mask"        # 'mask' | 'full' | 'none'
     warp_agg: str = "max"          # 'max' | 'avg'
-    # kernel-placed windowed fold: None = auto (on for CUDA and 'max'); it
-    # applies to the stages that the 'pallas' backend leaves to 'matmul'
+    # windowed fold: None = auto (``auto_windowed``); it applies to the
+    # stages that the 'pallas' backend leaves to 'matmul'
     warp_windowed: bool | None = None
+    # windowed placement: 'auto' | 'kernel' (the fold_place kernel where the
+    # shape qualifies) | 'xla' (gather/compare/scatter per part window)
+    warp_place: str = "auto"
     # 'matmul' (two-pass banded products) | 'pallas' (the fused two-pass
     # warp fold, ops/warp_pallas.py); 'exact' is not ported and raises
     warp_backend: str = "matmul"
@@ -78,27 +81,35 @@ class GANConfig:
         return 10 if self.warp_skip == "mask" else 1
 
 
+def auto_windowed(config: GANConfig, device: torch.device) -> bool:
+    """``config.warp_windowed``, or where it is None the JAX package's auto
+    rule (``engine.py:153-157``, its TPU read as a CUDA device): windowed
+    when the placement kernel places (a CUDA device, a max fold, placement
+    not 'xla'), or at a batch of 16 or more, where the gather/scatter
+    placement pays for itself."""
+    if config.warp_windowed is not None:
+        return config.warp_windowed
+    kernel_place = (config.warp_place != "xla" and config.warp_agg == "max"
+                    and device.type == "cuda")
+    return kernel_place or config.batch_size >= 16
+
+
 def build_models(config: GANConfig, seed: int = 0,
                  device=None) -> DeformableGenerator:
     """The generator for ``config``, Glorot-initialised from ``seed``, in
-    eval mode on ``device`` (default ``cuda``).
-
-    Windowing follows the JAX package's auto rule: the kernel-placed
-    windowed fold is on when the placement kernel runs (a CUDA device) and
-    the fold is a max. ``warp_backend='exact'`` raises NotImplementedError.
+    eval mode on ``device`` (default ``cuda``); windowing by
+    ``auto_windowed``. ``warp_backend='exact'`` raises NotImplementedError.
     """
     device = resolve_device(device)
-    windowed = config.warp_windowed
-    if windowed is None:
-        windowed = device.type == "cuda" and config.warp_agg == "max"
+    windowed = auto_windowed(config, device)
     gen = DeformableGenerator(
         pose_dim=config.pose_dim, image_size=config.image_size,
         nfilters_enc=encoder_filters_for(config.image_size),
         nfilters_dec=decoder_filters_for(config.image_size),
         warp_skip=config.warp_skip, warp_agg=config.warp_agg,
         use_input_pose=config.use_input_pose, warp_windowed=windowed,
-        warp_backend=config.warp_backend, dtype=config.compute_dtype,
-        device="meta")
+        warp_backend=config.warp_backend, warp_place=config.warp_place,
+        dtype=config.compute_dtype, device="meta")
     gen = gen.to_empty(device=device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)

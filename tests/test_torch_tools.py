@@ -1,8 +1,10 @@
 """The arithmetic of ``pose_transfer_torch.tools.profile_serve`` and
 ``profile_train`` on the CPU: the device idle share from a trace's
 intervals, kernel categories, the open-loop load generator against a narrow
-CPU server, and the training batches driving a narrow CPU train step."""
+CPU server, and the training batches driving a narrow CPU train step; the
+fold microbenchmark ``bench_fold`` on the CPU at a tiny shape."""
 
+import json
 from types import SimpleNamespace
 
 import numpy as np
@@ -13,6 +15,7 @@ from pose_transfer_torch.data.synthetic import random_image, random_skeleton
 from pose_transfer_torch.models.networks import (DeformableGenerator,
                                                  Discriminator, init_weights)
 from pose_transfer_torch.serve import PoseTransferServer
+from pose_transfer_torch.tools import bench_fold
 from pose_transfer_torch.tools.profile_serve import (_category, _idle_share,
                                                      _serve_load)
 from pose_transfer_torch.tools.profile_train import _batches
@@ -71,6 +74,8 @@ def test_kernel_categories():
                      "<__nv_bfloat16, false>(...)") == "warp_fold"
     assert _category("void (anonymous namespace)::warp_fold_bwd_kernel"
                      "<float>(...)") == "warp_fold_bwd"
+    assert _category("void (anonymous namespace)::fold_place_stream_kernel"
+                     "<float, true>(...)") == "fold_place_stream"
 
 
 def test_profile_train_batches_drive_a_ratio_2_step():
@@ -105,3 +110,52 @@ def test_profile_train_batches_drive_a_ratio_2_step():
     tv = losses.total_variation_loss(out).item()
     assert tv > 0 and total == pytest.approx(ll + ad + 0.5 * tv, rel=1e-6)
     assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+TINY = ["--device", "cpu", "--image_size", "64", "--batch", "2",
+        "--iters", "1", "--warmup", "0"]
+
+
+def _bench_lines(capsys, *args):
+    assert bench_fold.main([*TINY, *args]) == 0
+    return [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+
+
+@pytest.mark.parametrize("extra", [[], ["--groups", "9", "--stream_idx"]])
+def test_bench_fold_partstream_on_cpu(capsys, extra):
+    """Both legs with the JAX tool's keys; on the CPU the per-group window
+    warps sum the same ≤ 2 taps per element as the all-parts ones, so the
+    legs agree bit for bit (the argmax too)."""
+    legs, cmp = (lambda ls: (ls[:2], ls[2]))(
+        _bench_lines(capsys, "--experiment", "partstream", *extra))
+    groups = 9 if extra else 3
+    assert [ln["leg"] for ln in legs] == ["prod_monolithic",
+                                          f"partstream_g{groups}"]
+    for ln in legs:
+        assert {"experiment", "leg", "batch", "shape", "groups", "ms",
+                "temp_hbm_gb", "backend", "device"} <= set(ln)
+        assert ln["shape"] == [64, 64, 64] and ln["backend"] == "cpu"
+        assert ln["temp_hbm_gb"] is None      # device memory: not measured
+    assert cmp["bitexact"] and cmp["max_abs_diff"] == 0.0
+    assert cmp.get("idx_equal", True) and ("idx_equal" in cmp) == bool(extra)
+
+
+def test_bench_fold_variant_on_cpu(capsys):
+    lines = _bench_lines(capsys, "--variant", "xla,kernel", "--mode", "grad")
+    assert [ln["variant"] for ln in lines] == ["xla", "kernel"]
+    for ln in lines:
+        assert {"variant", "mode", "ms_per_call", "batch", "stage", "shape",
+                "dtype", "backend"} <= set(ln)
+        assert ln["mode"] == "grad" and ln["ms_per_call"] > 0
+    fn = {v: bench_fold.variant_fold(v, "grad", *bench_fold._fold_inputs(
+        2, (64, 64), 18, 0, torch.float32, torch.device("cpu")), (64, 64), 18)
+        for v in ("xla", "kernel")}
+    # same taps, exact sums of at most two products per window element
+    assert torch.equal(fn["xla"](), fn["kernel"]())
+
+
+def test_bench_fold_needs_a_card_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: --device cuda works")
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench_fold.main(["--experiment", "partstream"])
