@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR] [--ablate]
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device   card name, and name + power limit as nvidia-smi reports them
   2. build    compile every kernel of pose_transfer_torch/csrc with nvcc
   3. kernels  each kernel against its plain PyTorch version at the shapes
               the serving and training paths give it (bitwise; the fused
-              fold's backward warp_fold_bwd within a stated tolerance),
-              with its time, the plain version's time and the least time
-              for its bytes and operations; fold_place_stream over 9 parts
-              in groups of 3 at the windowed stages
+              fold's forward warp_fold bitwise but for the sign of zeros,
+              its backward warp_fold_bwd within a stated tolerance), with
+              its time, the plain version's time and the least time for
+              its bytes and operations; the fused fold's two kernels on
+              two input sets (random affines and masks, and a training
+              step's own transforms and masks), with the share of (tile,
+              part) pairs they counted as skipped; with --baseline DIR
+              also another checkout's two kernels, timed in turns with
+              these; with --ablate on ablated inputs too; fold_place_stream
+              over 9 parts in groups of 3 at the windowed stages
   4. serve    the full-width fashion-256 deformable generator (bf16, seeded
               random weights) behind PoseTransferServer: two full batches
               of 8 and a padded partial batch of 3; outputs checked, fold
@@ -40,18 +46,25 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               launches counted); its 'xla' and 'kernel' placements at N = 8,
               forward and feature gradient, held to each other in bf16 and
               f32
-  8. the kernels line, then the last line {"ok": true, "device": {...}}
+  8. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
+     random set, as since their first port; ms_main, plain_ms_main and
+     bound_ms_main on a training step's own inputs), then the last line
+     {"ok": true, "device": {...}}
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -117,6 +130,11 @@ PALLAS_GRAD_REL_TOL, PALLAS_GRAD_FLIP_SHARE = 3e-5, 1e-4
 # the fused warp fold's stages (H = W, C) at N = 8, T = 10 parts
 PALLAS_STAGES = ((256, 64), (128, 128))
 PALLAS_PARTS = 10
+# warp_fold against its plain version: bitwise, but for the sign of zeros.
+# The kernel skips a part's taps where its mask is 0 and folds +0 there; the
+# plain version rounds z·0 to z's signed zero. The fold compares with a
+# strict f32 '>', and +0 == −0, so the argmax cannot differ: out is compared
+# with −0 mapped to +0 (``fwd_same``), idx bitwise.
 # warp_fold_bwd against its plain version: both sum exact products in f64,
 # in other orders, so a rounding to f32 (dtmp, df_t) or to bf16 may flip
 # where the f64 sums straddle its boundary. f32: within 1e-6 of the
@@ -390,6 +408,55 @@ def warp_inputs(h, c, dtype, gen):
     return f.contiguous(), warps.contiguous(), masks.to(dtype).contiguous()
 
 
+def main_path_inputs(h, c, dtype, seed=0, device="cuda", batch=BATCH):
+    """The fused fold's inputs at one stage as a step builds them: a seeded
+    ``synthetic_compact_batch`` (fashion-256, pose_dim 18) through
+    ``make_batch_preparer`` in ``dtype`` (the generator's cast of the
+    warps), the masks resized to (h, h) as ``plan_folds`` does, features
+    N(0, 1) in ``dtype``, then ``ops/warp.py::_pallas_args``."""
+    image = (256, 256)
+    raw = synthetic_compact_batch(np.random.default_rng(seed), batch, image,
+                                  18)
+    prep = make_batch_preparer(image_size=image, pose_dim=18, device=device,
+                               dtype=dtype)(raw)
+    masks_r = warp_mod.resize_bilinear(prep["masks"], (h, h))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    f = torch.randn((batch, h, h, c), generator=gen, device=device).to(dtype)
+    return warp_mod._pallas_args(f, prep["warps"], masks_r, image)
+
+
+ABLATIONS = ("sentinel", "identity", "zero_masks")
+
+
+def ablated(inputs, kind):
+    """``inputs`` with every transform the translation-by-1000 sentinel (no
+    taps) or the identity (one tap an axis), or with all-zero masks."""
+    f, warps, masks = inputs
+    if kind == "zero_masks":
+        return f, warps, torch.zeros_like(masks)
+    warps = torch.zeros_like(warps)
+    warps[..., 0] = warps[..., 4] = 1.0
+    if kind == "sentinel":
+        warps[..., 2] = warps[..., 5] = 1000.0
+    return f, warps.contiguous(), masks
+
+
+def load_baseline(root):
+    """``ops/warp_pallas.py`` of another checkout of this repo at ``root``
+    (for example a parent commit unpacked with ``git archive``), imported
+    as a package of its own: its wrappers launch its own kernels, built
+    from its sources into ``root/pose_transfer_torch/_build/``."""
+    name = "baseline_pose_transfer_torch"
+    pkg = Path(root).resolve() / "pose_transfer_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.ops.warp_pallas")
+
+
 def _taps(pos, n):
     """The two ramp taps of each position along an axis of n: columns
     floor(pos) and floor(pos) + 1 (clamped into [0, n)), each with whether
@@ -451,6 +518,14 @@ def warp_bytes(h, c, itemsize, idx_bytes) -> int:
         + (n * h * h * c if idx_bytes else 0)
 
 
+def fwd_same(out, idx, ref, ref_idx) -> bool:
+    """The forward check: ``out`` bit for bit its plain version's once −0
+    is mapped to +0, ``idx`` bit for bit (see BWD_F32_REL's note)."""
+    bits = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+    same = torch.equal((out + 0.0).view(bits), (ref + 0.0).view(bits))
+    return same and (idx is None or torch.equal(idx, ref_idx))
+
+
 def _bf16_within(diff, ref, ulps) -> torch.Tensor:
     """Which elements lie within ``ulps`` bf16 ulps of their own magnitude,
     or, where parts nearly cancel, within 2^-16 of the largest."""
@@ -458,85 +533,142 @@ def _bf16_within(diff, ref, ulps) -> torch.Tensor:
     return (diff <= ulps * ulp) | (diff <= 2.0 ** -16 * ref.abs().max())
 
 
-def _bf16_ulps(diff, ref, ulps) -> bool:
-    return bool(_bf16_within(diff, ref, ulps).all())
+def bwd_within(df, ref) -> bool:
+    """The backward check: f32 within BWD_F32_REL of the largest element,
+    bf16 within BWD_BF16_ULPS ulps of each element's own magnitude."""
+    diff = (df.float() - ref.float()).abs()
+    if df.dtype == torch.float32:
+        return bool(diff.max() <= BWD_F32_REL * ref.float().abs().max())
+    return bool(_bf16_within(diff, ref.float(), BWD_BF16_ULPS).all())
 
 
-def phase_warp_kernels(flush) -> dict:
+def _timed(call, accept, versions, flush, what) -> dict:
+    """{version: ms per ``call(module)``}: each version's result held to
+    ``accept`` first, then the versions timed in the given turns (baseline,
+    current, current, baseline: drift of the card's clocks falls on
+    both)."""
+    spans: dict = {}
+    for name, module in versions:
+        if name not in spans:
+            check(accept(call(module)), f"{what}: the {name} kernel "
+                  "disagrees with its plain version")
+        spans.setdefault(name, []).append(
+            time_cuda(lambda: call(module), 20, flush))
+    return {k: sum(v) / len(v) for k, v in spans.items()}
+
+
+def phase_warp_kernels(flush, baseline=None, ablate=False) -> dict:
     """warp_fold and warp_fold_bwd against their plain versions at the
-    fused fold's stages: the forward bitwise (out and idx, with and without
-    the argmax), the backward within BWD_F32_REL / BWD_BF16_ULPS; the
-    summaries sum the bf16 main-path variants over the two stages (the
-    forward without the argmax, as serving runs it; the backward)."""
+    fused fold's stages, on two input sets: ``random`` (``warp_inputs``,
+    masks from {0, ¼, ½, 1}) and ``main`` (``main_path_inputs``, a training
+    step's own transforms and masks: most parts' masks are 0 over most
+    tiles). The forward bitwise apart from the sign of zeros (``fwd_same``),
+    with and without the argmax; the backward within BWD_F32_REL /
+    BWD_BF16_ULPS. Each line carries the share of (tile, part) pairs that
+    the kernel counted as skipped (and, for the backward, as staged in more
+    than one pass). With ``baseline`` (``load_baseline``) another version
+    of both kernels is checked and timed in turns with these, its ms beside
+    theirs; with ``ablate`` every set is also run as ``ablated``. The
+    summaries sum the bf16 main-path variants (the forward without the
+    argmax, as serving runs it; the backward) over the two stages, per
+    input set."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    main = {"warp_fold": _summary(), "warp_fold_bwd": _summary()}
-    for dtype, bits in ((torch.bfloat16, torch.int16),
-                        (torch.float32, torch.int32)):
-        dname = str(dtype).split(".")[-1]
+    versions = [("current", warp_pallas)]
+    if baseline is not None:
+        versions = [("baseline", baseline), ("current", warp_pallas),
+                    ("current", warp_pallas), ("baseline", baseline)]
+    sums = {(k, s): _summary() for k in ("warp_fold", "warp_fold_bwd")
+            for s in ("random", "main")}
+    for dtype in (torch.bfloat16, torch.float32):
         for h, c in PALLAS_STAGES:
-            f, warps, masks = warp_inputs(h, c, dtype, gen)
-            ops_f = warp_ops(warps, h, c)
-            shape = {"N": BATCH, "H": h, "W": h, "C": c, "T": PALLAS_PARTS}
-            for emit_idx in (False, True):
-                ref, ref_idx = warp_pallas.warp_fold_pallas_reference(
-                    f, warps, masks, emit_idx)
-                out, idx = warp_pallas.warp_fold(f, warps, masks, emit_idx)
-                torch.cuda.synchronize()
-                same = torch.equal(out.view(bits), ref.view(bits))
-                if emit_idx:
-                    same = same and torch.equal(idx, ref_idx)
-                err = (out.float() - ref.float()).abs().max().item()
-                check(same, f"warp_fold bitwise {dtype} emit_idx={emit_idx}"
-                      f" at {h}x{h}x{c}")
-                ms = time_cuda(lambda: warp_pallas.warp_fold(
-                    f, warps, masks, emit_idx), 20, flush)
-                plain_ms = time_cuda(
-                    lambda: warp_pallas.warp_fold_pallas_reference(
-                        f, warps, masks, emit_idx), 2, flush)
-                res = {"ms": ms, "plain_ms": plain_ms, **_bound(
-                    warp_bytes(h, c, out.element_size(), emit_idx), ops_f)}
-                emit({"phase": "kernel", "name": "warp_fold", "dtype": dname,
-                      "emit_idx": emit_idx, "shape": shape,
-                      "bitwise_equal": same, "max_abs_err": err,
-                      "operations": ops_f, **res})
-                m = main["warp_fold"]
-                m["max_abs_err"] = max(m["max_abs_err"], err)
-                if dtype == torch.bfloat16 and not emit_idx:
-                    _add(m, res)
-            g = torch.randn(f.shape, generator=gen, device="cuda").to(dtype)
-            ops_b = warp_ops(warps, h, c, idx)
-            ref = warp_pallas.warp_fold_pallas_bwd_reference(
-                g, warps, masks, idx)
-            df = warp_pallas.warp_fold_bwd(g, warps, masks, idx)
-            torch.cuda.synchronize()
-            diff = (df.float() - ref.float()).abs()
-            scale = ref.float().abs().max().item()
-            if dtype == torch.float32:
-                ok = diff.max().item() <= BWD_F32_REL * scale
-            else:
-                ok = _bf16_ulps(diff, ref.float(), BWD_BF16_ULPS)
-            check(ok, f"warp_fold_bwd {dtype} at {h}x{h}x{c}: max diff "
-                  f"{diff.max().item()} of {scale}")
-            ms = time_cuda(lambda: warp_pallas.warp_fold_bwd(
-                g, warps, masks, idx), 20, flush)
-            plain_ms = time_cuda(
-                lambda: warp_pallas.warp_fold_pallas_bwd_reference(
-                    g, warps, masks, idx), 2, flush)
-            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
-                warp_bytes(h, c, g.element_size(), True), ops_b)}
-            err = diff.max().item()
-            emit({"phase": "kernel", "name": "warp_fold_bwd", "dtype": dname,
-                  "shape": shape, "within_tolerance": ok,
-                  "elements_differing": int((diff > 0).sum().item()),
-                  "elements": diff.numel(), "max_abs_err": err,
-                  "max_abs_ref": scale, "operations": ops_b, **res})
-            m = main["warp_fold_bwd"]
-            m["max_abs_err"] = max(m["max_abs_err"], err)
-            if dtype == torch.bfloat16:
-                _add(m, res)
-            del f, g, ref, df, out, idx, ref_idx, diff
-    return main
+            sets = (("random", warp_inputs(h, c, dtype, gen)),
+                    ("main", main_path_inputs(h, c, dtype)))
+            for set_name, inputs in sets:
+                for kind in (None, *(ABLATIONS if ablate else ())):
+                    _check_warp_pair(
+                        set_name if kind is None else f"{set_name}:{kind}",
+                        *(inputs if kind is None else ablated(inputs, kind)),
+                        gen, flush, versions, sums,
+                        kind is None and dtype == torch.bfloat16)
+    return sums
+
+
+def _check_warp_pair(set_name, f, warps, masks, gen, flush, versions, sums,
+                     summed):
+    """One input set through both fused-fold kernels: checked, timed, its
+    bound and the kernels' skip counts printed; its times added to ``sums``
+    where ``summed``, its error to the set's max_abs_err always."""
+    h, c = f.shape[1], f.shape[3]
+    dname = str(f.dtype).split(".")[-1]
+    bits = torch.int16 if f.dtype == torch.bfloat16 else torch.int32
+    ops_f = warp_ops(warps, h, c)
+    shape = {"N": BATCH, "H": h, "W": h, "C": c, "T": PALLAS_PARTS}
+    idx = None
+    for emit_idx in (False, True):
+        ref, ref_idx = warp_pallas.warp_fold_pallas_reference(
+            f, warps, masks, emit_idx)
+        stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+        out, idx = warp_pallas.warp_fold(f, warps, masks, emit_idx, stats)
+        torch.cuda.synchronize()
+        same = fwd_same(out, idx, ref, ref_idx)
+        err = (out.float() - ref.float()).abs().max().item()
+        what = f"warp_fold {set_name} {dname} emit_idx={emit_idx} at " \
+            f"{h}x{h}x{c}"
+        check(same, f"{what}: not bitwise (±0 aside)")
+        ms = _timed(lambda m: m.warp_fold(f, warps, masks, emit_idx),
+                    lambda r: fwd_same(*r, ref, ref_idx), versions, flush,
+                    what)
+        plain_ms = time_cuda(lambda: warp_pallas.warp_fold_pallas_reference(
+            f, warps, masks, emit_idx), 2, flush)
+        res = {"ms": ms["current"], "plain_ms": plain_ms, **_bound(
+            warp_bytes(h, c, out.element_size(), emit_idx), ops_f)}
+        skipped, pairs = stats.tolist()
+        emit({"phase": "kernel", "name": "warp_fold", "inputs": set_name,
+              "dtype": dname, "emit_idx": emit_idx, "shape": shape,
+              "bitwise_equal_but_zero_signs": same,
+              "zero_signs_differing": int(
+                  (out.view(bits) != ref.view(bits)).sum().item()),
+              "max_abs_err": err, "operations": ops_f,
+              "skipped_share": skipped / pairs,
+              **({"baseline_ms": ms["baseline"]} if "baseline" in ms
+                 else {}), **res})
+        m = sums["warp_fold", set_name.split(":")[0]]
+        m["max_abs_err"] = max(m["max_abs_err"], err)
+        if summed and not emit_idx:
+            _add(m, res)
+    g = torch.randn(f.shape, generator=gen, device="cuda").to(f.dtype)
+    ops_b = warp_ops(warps, h, c, idx)
+    ref = warp_pallas.warp_fold_pallas_bwd_reference(g, warps, masks, idx)
+    stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+    df = warp_pallas.warp_fold_bwd(g, warps, masks, idx, stats)
+    torch.cuda.synchronize()
+    diff = (df.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    ok = bwd_within(df, ref)
+    what = f"warp_fold_bwd {set_name} {dname} at {h}x{h}x{c}"
+    check(ok, f"{what}: max diff {diff.max().item()} of {scale}")
+    ms = _timed(lambda m: m.warp_fold_bwd(g, warps, masks, idx),
+                lambda r: bwd_within(r, ref), versions, flush, what)
+    plain_ms = time_cuda(lambda: warp_pallas.warp_fold_pallas_bwd_reference(
+        g, warps, masks, idx), 2, flush)
+    res = {"ms": ms["current"], "plain_ms": plain_ms, **_bound(
+        warp_bytes(h, c, g.element_size(), True), ops_b)}
+    err = diff.max().item()
+    skipped, multipass, pairs = stats.tolist()
+    emit({"phase": "kernel", "name": "warp_fold_bwd", "inputs": set_name,
+          "dtype": dname, "shape": shape, "within_tolerance": ok,
+          "elements_differing": int((diff > 0).sum().item()),
+          "elements": diff.numel(), "max_abs_err": err,
+          "max_abs_ref": scale, "operations": ops_b,
+          "skipped_share": skipped / pairs,
+          "multipass_share": multipass / pairs,
+          **({"baseline_ms": ms["baseline"]} if "baseline" in ms else {}),
+          **res})
+    m = sums["warp_fold_bwd", set_name.split(":")[0]]
+    m["max_abs_err"] = max(m["max_abs_err"], err)
+    if summed:
+        _add(m, res)
 
 
 def make_requests(rng, n, size):
@@ -933,7 +1065,19 @@ def phase_fold_stream(card: str) -> int:
     return stream_launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
+                                "on one CUDA card (see the module's notes).")
+    p.add_argument("--baseline", metavar="DIR", default=None,
+                   help="another checkout of this repo (e.g. the parent "
+                   "commit, unpacked with git archive): phase 3 also checks "
+                   "its warp_fold and warp_fold_bwd and times them in turns "
+                   "with these (baseline_ms)")
+    p.add_argument("--ablate", action="store_true",
+                   help="phase 3 also runs the fused fold's kernels on "
+                   "ablated inputs (sentinel or identity transforms, zero "
+                   "masks)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -961,7 +1105,17 @@ def main() -> int:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     main_k = phase_kernels(flush)
-    main_k.update(phase_warp_kernels(flush))
+    baseline = None if args.baseline is None \
+        else load_baseline(args.baseline)
+    warp_sums = phase_warp_kernels(flush, baseline, args.ablate)
+    for name in ("warp_fold", "warp_fold_bwd"):
+        # the line reads the random set, as since the kernels' first port;
+        # the main path's own inputs ride along as *_main
+        rand, on_main = warp_sums[name, "random"], warp_sums[name, "main"]
+        main_k[name] = {**rand, "max_abs_err": max(
+            rand["max_abs_err"], on_main["max_abs_err"]),
+            **{f"{k}_main": on_main[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms")}}
     del flush
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
@@ -999,7 +1153,8 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"]
             else "operations",
-            "library_ms": None, "checked_vs_plain": True})
+            "library_ms": None, "checked_vs_plain": True,
+            **{k: v for k, v in m.items() if k.endswith("_main")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

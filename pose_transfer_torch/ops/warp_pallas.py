@@ -36,10 +36,15 @@ The plain versions' dots run in float64: every product of two f32 (or
 bf16) values is exact there, so a forward sum of at most two products is
 one rounding whatever order a GEMM takes, and the kernels (which sum the
 same terms in f64, or in f32 where the products are bf16 values) agree with
-them bit for bit. The argmax is int8 (JAX: int32; T ≤ 127).
+them bit for bit, but for the sign of zeros: the forward kernel folds +0
+for a part whose mask is 0 and skips its taps, where the plain version
+rounds z·0 to z's signed zero. The argmax is int8 (JAX: int32; T ≤ 127).
 """
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import torch
 
@@ -160,6 +165,87 @@ def warp_fold_pallas_bwd_reference(g: torch.Tensor,
     return acc.contiguous()
 
 
+# ------------------------------------------------ the backward's box rule
+#
+# warp_fold_bwd (csrc/warp_fold_bwd.cu) skips a (tile, part) pair whose
+# mask is 0 wherever the part's taps reach the tile. Its first test is a
+# box of output pixels per tile of df: ``bwd_boxes`` computes the same box
+# in torch, so that the CPU tests can hold it against brute force (it must
+# hold every output pixel with a nonzero weight to the tile). The tile and
+# the slope below which an axis is scanned whole are read from the kernel's
+# source. What the kernels skip on given inputs they count themselves
+# (the ``stats`` argument of ``warp_fold`` and ``warp_fold_bwd``).
+
+
+def _kernel_constants(name: str) -> dict:
+    """The ``constexpr int`` / ``float`` constants ``k...`` of
+    ``csrc/<name>.cu``."""
+    src = (Path(__file__).resolve().parents[1] / "csrc" / f"{name}.cu") \
+        .read_text()
+    return {k: float(v) for k, v in re.findall(
+        r"constexpr (?:int|float) (k\w+) = ([0-9.e+-]+)f?;", src)}
+
+
+_BWD = _kernel_constants("warp_fold_bwd")
+BWD_TILE = (int(_BWD["kTileY"]), int(_BWD["kTileX"]))   # df tile (rows, cols)
+MIN_SLOPE = _BWD["kMinSlope"]    # below it an axis is scanned whole
+
+
+def _window(slope, c1, c2, a, b, n):
+    """The kernel's index window along an axis of n: every i whose f32
+    position slope·(i + ½) + c (c between c1 and c2, f64) can lie in
+    (a − 1, b + 1): the real-arithmetic interval, floor/ceil, widened by 2
+    on each side against the rounding of the position; the whole axis for
+    |slope| < MIN_SLOPE or a bound that is not finite; (lo, hi) int64,
+    lo > hi when empty. slope f32, c1/c2 f64, a/b integers, broadcast."""
+    inv = 1.0 / slope.double()
+    e1 = torch.as_tensor(a, dtype=torch.float64, device=slope.device) - 1.0
+    e2 = torch.as_tensor(b, dtype=torch.float64, device=slope.device) + 1.0
+    ends = [(e - c) * inv - 0.5 for e in (e1, e2) for c in (c1, c2)]
+    p = torch.floor(torch.fmin(torch.fmin(ends[0], ends[1]),
+                               torch.fmin(ends[2], ends[3]))) - 2.0
+    q = torch.ceil(torch.fmax(torch.fmax(ends[0], ends[1]),
+                              torch.fmax(ends[2], ends[3]))) + 2.0
+    whole = ~(slope.abs() >= MIN_SLOPE) | ~(p.isfinite() & q.isfinite())
+    empty = ~whole & ((q < 0) | (p > n - 1))
+    lo = torch.where(whole, 0.0, p.clamp(min=0.0))
+    hi = torch.where(whole, n - 1.0, q.clamp(max=n - 1.0))
+    lo = torch.where(empty, 1.0, lo).long()
+    hi = torch.where(empty, 0.0, hi).long()
+    return lo, hi
+
+
+def _tiles(n, size):
+    """Start and last index of each tile of ``size`` along an axis of n."""
+    a = torch.arange(0, n, size)
+    return a, (a + size - 1).clamp(max=n - 1)
+
+
+def bwd_boxes(warps_t: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """For one part's (N, 8) scaled transforms, the (N, tiles_y, tiles_x, 4)
+    [o_lo, o_hi, xo_lo, xo_hi] box of output pixels whose taps can reach
+    each BWD_TILE tile of df (rows: v(x, o) within a tap of the tile's rows
+    for x at the tile's two edge columns; columns: u(xo, o) within a tap of
+    its columns for o at the rows' two ends)."""
+    dev = warps_t.device
+    m00, m01, tx, m10, m11, ty = (warps_t[:, i, None, None]
+                                  for i in range(6))
+    y_a, y_b = (t.to(dev)[:, None] for t in _tiles(h, BWD_TILE[0]))
+    x_a, x_b = (t.to(dev)[None, :] for t in _tiles(w, BWD_TILE[1]))
+    tyh, txh = (ty - 0.5).double(), (tx - 0.5).double()
+
+    def off(coef, i, half):
+        return half + (coef * (i.float() + 0.5)).double()
+    o_lo, o_hi = _window(m11, off(m10, x_a, tyh), off(m10, x_b, tyh),
+                         y_a, y_b, h)
+    empty = o_lo > o_hi
+    xo_lo, xo_hi = _window(m00, off(m01, o_lo, txh), off(m01, o_hi, txh),
+                           x_a, x_b, w)
+    xo_lo = torch.where(empty, 1, xo_lo)
+    xo_hi = torch.where(empty, 0, xo_hi)
+    return torch.stack(torch.broadcast_tensors(o_lo, o_hi, xo_lo, xo_hi), -1)
+
+
 def _check(name, x, warps_scaled, masks_r, idx=None):
     if x.ndim != 4:
         raise ValueError(f"{name}: expected (N, H, W, C), got "
@@ -182,8 +268,24 @@ def _check(name, x, warps_scaled, masks_r, idx=None):
     return n, h, w, c, t
 
 
+def _no_stats(name, stats):
+    if stats is not None:
+        raise ValueError(f"{name}: stats counts what the CUDA kernel skips; "
+                         "the plain version on the CPU skips nothing")
+
+
+def _check_stats(name, stats, size, device):
+    if stats is not None and (stats.dtype != torch.int64
+                              or tuple(stats.shape) != (size,)
+                              or stats.device != device
+                              or not stats.is_contiguous()):
+        raise ValueError(f"{name}: stats must be a contiguous int64 tensor "
+                         f"of {size} on the kernel's device")
+
+
 def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
-              masks_r: torch.Tensor, emit_idx: bool = True):
+              masks_r: torch.Tensor, emit_idx: bool = True,
+              stats: torch.Tensor | None = None):
     """Fused two-pass warp, mask multiply and max fold over the parts.
 
     Args:
@@ -193,6 +295,9 @@ def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
       masks_r: (N, T, H, W) part masks at feature resolution, in the
         features' dtype (all ones for unmasked warping).
       emit_idx: also return the argmax (off on the no-grad path).
+      stats: None (the main path), or an int64 tensor of 2 on the card, to
+        which the kernel adds the (tile, part) pairs it skipped (the part's
+        mask is 0 over the whole output tile) and all its pairs.
 
     Returns:
       (out (N, H, W, C), idx (N, H, W, C) int8 or None): the max fold and
@@ -202,9 +307,11 @@ def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
     tensors = (features, warps_scaled, masks_r)
     warp_fused._refuse_grad("warp_fold", tensors)
     if not warp_fused._on_card("warp_fold", tensors, c):
+        _no_stats("warp_fold", stats)
         return warp_fold_pallas_reference(features, warps_scaled, masks_r,
                                           emit_idx)
-    lib = warp_fused._kernel_lib("warp_fold", 5, 7)
+    _check_stats("warp_fold", stats, 2, features.device)
+    lib = warp_fused._kernel_lib("warp_fold", 6, 7)
     out = torch.empty_like(features)
     idx = torch.empty(features.shape, dtype=torch.int8,
                       device=features.device) if emit_idx else None
@@ -212,6 +319,7 @@ def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
         "warp_fold", lib, features.device, features.data_ptr(),
         warps_scaled.data_ptr(), masks_r.data_ptr(), out.data_ptr(),
         idx.data_ptr() if emit_idx else None,
+        None if stats is None else stats.data_ptr(),
         n, h, w, c, t, _DTYPE_CODES[features.dtype], int(emit_idx))
     LAUNCHES["warp_fold"] += 1
     if emit_idx:
@@ -220,7 +328,8 @@ def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
 
 
 def warp_fold_bwd(g: torch.Tensor, warps_scaled: torch.Tensor,
-                  masks_r: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+                  masks_r: torch.Tensor, idx: torch.Tensor,
+                  stats: torch.Tensor | None = None) -> torch.Tensor:
     """Feature gradient of ``warp_fold``: both transposed passes, the
     cotangent routed to the part the argmax names.
 
@@ -228,6 +337,10 @@ def warp_fold_bwd(g: torch.Tensor, warps_scaled: torch.Tensor,
       g: (N, H, W, C) cotangent, float32 or bfloat16.
       warps_scaled, masks_r: as for ``warp_fold``.
       idx: (N, H, W, C) int8 argmax from ``warp_fold``.
+      stats: None (the main path), or an int64 tensor of 3 on the card, to
+        which the kernel adds the (tile, part) pairs it skipped (no output
+        pixel with a nonzero mask reaches the df tile), those it staged in
+        more than one pass (a steep m11), and all its pairs.
 
     Returns:
       (N, H, W, C) df in g's dtype.
@@ -236,12 +349,16 @@ def warp_fold_bwd(g: torch.Tensor, warps_scaled: torch.Tensor,
     tensors = (g, warps_scaled, masks_r, idx)
     warp_fused._refuse_grad("warp_fold_bwd", tensors)
     if not warp_fused._on_card("warp_fold_bwd", tensors, c):
+        _no_stats("warp_fold_bwd", stats)
         return warp_fold_pallas_bwd_reference(g, warps_scaled, masks_r, idx)
-    lib = warp_fused._kernel_lib("warp_fold_bwd", 5, 6)
+    _check_stats("warp_fold_bwd", stats, 3, g.device)
+    lib = warp_fused._kernel_lib("warp_fold_bwd", 7, 6)
     df = torch.empty_like(g)
+    bbox = torch.empty((n, t, 4), dtype=torch.int32, device=g.device)
     warp_fused._launch(
         "warp_fold_bwd", lib, g.device, g.data_ptr(), warps_scaled.data_ptr(),
-        masks_r.data_ptr(), idx.data_ptr(), df.data_ptr(),
+        masks_r.data_ptr(), idx.data_ptr(), df.data_ptr(), bbox.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         n, h, w, c, t, _DTYPE_CODES[g.dtype])
     LAUNCHES["warp_fold_bwd"] += 1
     return df

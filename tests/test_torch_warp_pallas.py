@@ -675,29 +675,50 @@ def test_gan_config_rejects_exact_backend():
 
 # ------------------------------------------------------ kernels on the card
 
+def _fwd_equal(out, idx, ref, ref_idx, dtype):
+    """The CUDA forward against its plain version: ``out`` bit for bit once
+    −0 is mapped to +0, ``idx`` bit for bit. The kernel folds zm = +0 where
+    a part's mask is 0 (it skips the taps); the plain version rounds z·0 to
+    z's signed zero. The compare is a strict f32 '>' and +0 == −0, so only
+    the sign of a zero output can differ, never the argmax."""
+    assert torch.equal((out.cpu() + 0.0).view(_DT[dtype][3]),
+                       (ref + 0.0).view(_DT[dtype][3]))
+    if ref_idx is not None:
+        assert torch.equal(idx.cpu(), ref_idx)
+
+
+def _bwd_within(df, ref, dtype):
+    """The CUDA backward against its plain version: both sum exact f64
+    products, in other orders, so a rounding may flip; f32 within 1e-6 of
+    the largest element, bf16 within two ulps."""
+    diff = (df.cpu().float() - ref.float()).abs()
+    if dtype == "float32":
+        assert diff.max() <= 1e-6 * ref.abs().max()
+    else:
+        assert (diff <= 2 * 2.0 ** (torch.floor(torch.log2(
+            ref.float().abs() + 1e-30)) - 7)).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("emit_idx", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_warp_fold_kernel_matches_plain(dtype, emit_idx):
-    """The CUDA forward, bitwise against its plain version (on the card)."""
+    """The CUDA forward against its plain version (on the card), bitwise
+    apart from the sign of zeros (``_fwd_equal``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     args = _torch_args(_inputs((2, 16, 128, 16, 10), 7), dtype)
     ref, ref_idx = twp.warp_fold_pallas_reference(*args, emit_idx=emit_idx)
     out, idx = twp.warp_fold(*(a.cuda() for a in args), emit_idx=emit_idx)
     torch.cuda.synchronize()
-    assert torch.equal(out.cpu().view(_DT[dtype][3]),
-                       ref.view(_DT[dtype][3]))
-    if emit_idx:
-        assert torch.equal(idx.cpu(), ref_idx)
+    _fwd_equal(out, idx, ref, ref_idx, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_warp_fold_bwd_kernel_matches_plain(dtype):
-    """The CUDA backward against its plain version (on the card): both sum
-    exact f64 products, in other orders, so a rounding may flip; f32
-    within 1e-6 of the largest element, bf16 within two ulps."""
+    """The CUDA backward against its plain version (on the card), within
+    the tolerance of ``_bwd_within``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     f, warps, masks = _torch_args(_inputs((2, 16, 128, 16, 10), 8), dtype)
@@ -706,12 +727,60 @@ def test_warp_fold_bwd_kernel_matches_plain(dtype):
                      .astype(np.float32)).to(f.dtype)
     ref = twp.warp_fold_pallas_bwd_reference(g, warps, masks, idx)
     df = twp.warp_fold_bwd(g.cuda(), warps.cuda(), masks.cuda(),
-                           idx.cuda()).cpu()
-    diff = (df.float() - ref.float()).abs()
-    if dtype == "float32":
-        assert diff.max() <= 1e-6 * ref.abs().max()
-    else:
-        assert (diff <= 2 * 2.0 ** (torch.floor(torch.log2(
-            ref.float().abs() + 1e-30)) - 7)).all()
+                           idx.cuda())
+    _bwd_within(df, ref, dtype)
 
 
+def _tile_masks(shape, seed):
+    """Masks that are 0 over whole kernel tiles (and over some single
+    pixels), so that both kernels' skips run: part 0 all ones, parts 1-9
+    nonzero on a random block of rows and columns each (part 5 all ones);
+    transforms with scales 0.3-3 (a steep m11 takes warp_fold_bwd's
+    multi-pass staging), shears, the sentinel and a near-zero slope."""
+    f, warps, masks = _inputs(shape, seed)
+    n, t, h, w = masks.shape
+    rng = np.random.default_rng(seed + 1)
+    keep = np.zeros_like(masks)
+    keep[:, 0] = keep[:, 5] = 1.0
+    for i in range(n):
+        for k in range(1, t):
+            y0, x0 = rng.integers(0, h - 4), rng.integers(0, w - 16)
+            keep[i, k, y0:y0 + rng.integers(2, 9),
+                 x0:x0 + rng.integers(4, 40)] = 1.0
+    warps[:, 5, 4] = 0.2           # steep: source rows 5x as dense
+    warps[:, 6, 0] = 3.0           # spread columns
+    warps[:, 7, 4] = 1e-4          # near-zero slope: whole-axis scan
+    return f, warps, masks * keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp_kernels_skip_zero_tiles(dtype):
+    """Both kernels on masks that are 0 over whole tiles (their skip paths)
+    and on transforms that the backward stages in several passes: the forward
+    bitwise apart from the sign of zeros, the backward within its
+    tolerance; the kernels' own skip counts show that both paths ran. 48
+    rows: a column of a 16-row map never needs more rows than shared memory
+    holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    f, warps, masks = _torch_args(_tile_masks((2, 48, 128, 16, 10), 11),
+                                  dtype)
+    ref, ref_idx = twp.warp_fold_pallas_reference(f, warps, masks)
+    fwd_stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out, idx = twp.warp_fold(f.cuda(), warps.cuda(), masks.cuda(),
+                             stats=fwd_stats)
+    _fwd_equal(out, idx, ref, ref_idx, dtype)
+    g = torch.tensor(np.random.default_rng(4).standard_normal(f.shape)
+                     .astype(np.float32)).to(f.dtype)
+    ref_df = twp.warp_fold_pallas_bwd_reference(g, warps, masks, ref_idx)
+    bwd_stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+    df = twp.warp_fold_bwd(g.cuda(), warps.cuda(), masks.cuda(),
+                           ref_idx.cuda(), stats=bwd_stats)
+    _bwd_within(df, ref_df, dtype)
+    skipped, pairs = fwd_stats.tolist()
+    assert skipped > 0.5 * pairs
+    skipped, multipass, pairs = bwd_stats.tolist()
+    # (tile, part) pairs: 2 samples x (48/4 x 128/16) df tiles x 10 parts
+    assert pairs == 2 * 12 * 8 * 10
+    assert skipped > 0.3 * pairs and multipass > 0
