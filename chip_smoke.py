@@ -46,7 +46,21 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               launches counted); its 'xla' and 'kernel' placements at N = 8,
               forward and feature gradient, held to each other in bf16 and
               f32
-  8. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
+  8. cli_h36m the port's command-line entry points in this process at full width
+              on h36m (224², pose_dim 16, the 6-stage ladder, bf16, batch
+              8): make_synthetic_data writes a PNG dataset (4 people x 6
+              frames: 16 frame pairs a split, so that batches of 8 can be
+              drawn; 3 frames a person give 4), cli.main trains 2 epochs of
+              3 iterations (losses finite, checkpoints, grids, fold_place
+              and fold_route launches counted, the seconds each background
+              save held the loop), cli.main --resume 1 runs into a third
+              epoch (resumes at epoch 2, seeks the stream by 9 batches),
+              cli.test writes a grid per test batch, cli.evaluate prints
+              finite metrics; then the h36m 224² fold through the kernels
+              against the plain full scan (forward and feature gradient,
+              bf16 and f32), and the 'pallas' backend's h36m forward, which
+              launches no warp_fold and equals the 'matmul' one
+  9. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
      random set, as since their first port; ms_main, plain_ms_main and
      bound_ms_main on a training step's own inputs), then the last line
      {"ok": true, "device": {...}}
@@ -57,12 +71,17 @@ Exits non-zero without a CUDA device. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
+import io
 import json
+import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +89,12 @@ import numpy as np
 import torch
 
 from pose_transfer_torch import _build
+from pose_transfer_torch.cli import evaluate as cli_evaluate
+from pose_transfer_torch.cli import main as cli_main
+from pose_transfer_torch.cli import make_synthetic_data as cli_data
+from pose_transfer_torch.cli import test as cli_test
+from pose_transfer_torch.core.transforms_host import static_empty_parts
+from pose_transfer_torch.data.loader import BatchStream
 from pose_transfer_torch.data.dataset import collate
 from pose_transfer_torch.data.device import make_batch_preparer
 from pose_transfer_torch.data.synthetic import random_image, random_skeleton
@@ -79,6 +104,7 @@ from pose_transfer_torch.ops import warp_pallas
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.data.synthetic import synthetic_compact_batch
 from pose_transfer_torch.tools import bench_fold
+from pose_transfer_torch.train import checkpoint
 from pose_transfer_torch.train.engine import (GANConfig, build_models,
                                               create_state, make_eval_step,
                                               make_train_step)
@@ -143,6 +169,21 @@ PALLAS_PARTS = 10
 # two bf16 ulps of its own magnitude (one flipped rounding of dtmp or df_t,
 # then the in-dtype accumulation).
 BWD_F32_REL, BWD_BF16_ULPS = 1e-6, 2
+# phase 8: h36m through the CLI (the stage ladder 224², 112², 56², 28², ...)
+H36M, H36M_POSE = (224, 224), 16
+CLI_ITERS, CLI_FRAMES = 3, 6
+# The bf16 fold gradient at h36m's 224² stage against autograd through the
+# plain full scan, also in bf16: autograd rounds each part's pass-1
+# transpose to bf16 and adds the body's and the 5 active parts' gradients
+# one bf16 rounding at a time (6 roundings of half an ulp of a partial sum
+# up to the largest magnitude), where the kernel path sums the parts in f32
+# and rounds once; so every element is held within H36M_BF16_GRAD_ULPS bf16
+# ulps of the largest magnitude (an ulp of its binade: 2^(e-7) for a
+# largest of 2^e to 2^(e+1)). Measured: 1 such ulp with the plain placement
+# on the CPU (N = 2, C = 64), 2.16 on an H100 (N = 8: 0.2705 at a largest
+# of 18.875), while 6 399 of 6.4 M elements lie beyond 2 ulps of their own
+# magnitude on the CPU, so that per-element bound does not apply here.
+H36M_BF16_GRAD_ULPS = 4
 
 
 def emit(obj) -> None:
@@ -1065,6 +1106,240 @@ def phase_fold_stream(card: str) -> int:
     return stream_launches
 
 
+def _cli(fn, argv) -> tuple[str, float]:
+    """Run one CLI entry point in this process: (its stdout, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _img_per_s(out: str) -> list:
+    return [float(v) for v in re.findall(r"img/s : ([0-9.]+)", out)]
+
+
+def phase_cli_h36m(card: str) -> dict:
+    """The port's CLI flow at full width on h36m; returns the fold kernel
+    launches of its training runs."""
+    tmp = tempfile.TemporaryDirectory(prefix="cli_h36m_")
+    root = Path(tmp.name)
+    data = str(root / "data") + "/"
+    flags = ["--expID", "h36m", "--data_Dir", data, "--dataset", "h36m",
+             "--pose_dim", str(H36M_POSE), "--compute_dtype", "bfloat16",
+             "--batch_size", str(BATCH), "--iters_per_epoch", str(CLI_ITERS),
+             "--checkpoint_ratio", "1", "--display_ratio", "2",
+             "--checkMode", "0", "--exp_root", str(root / "exp"),
+             "--device", "cuda"]
+    exp = root / "exp" / "h36m"
+    _, secs = _cli(cli_data.main, ["--out", data, "--dataset", "h36m",
+                                   "--pose_dim", str(H36M_POSE),
+                                   "--images_per_person", str(CLI_FRAMES)])
+    images = sorted((root / "data" / "h36m-dataset" / "train").iterdir())
+    check(len(images) == 4 * CLI_FRAMES
+          and all(p.suffix == ".png" for p in images), "dataset images")
+    emit({"phase": "cli_h36m", "step": "make_synthetic_data",
+          "seconds": secs, "images_per_split": len(images)})
+
+    held = []
+    save = checkpoint.save
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        save(*a, **k)
+        held.append(time.perf_counter() - t0)
+
+    seeks = []
+    seek = BatchStream.seek_batches
+
+    def counted_seek(self, k):
+        seeks.append(k)
+        seek(self, k)
+
+    checkpoint.save, BatchStream.seek_batches = timed_save, counted_seek
+    launches = {}
+    try:
+        for run, extra in (("train", ["--number_of_epochs", "2"]),
+                           ("resume", ["--number_of_epochs", "3",
+                                       "--resume", "1"])):
+            held.clear()
+            seeks.clear()
+            _reset_counts()
+            out, secs = _cli(cli_main.main, flags + extra)
+            launches[run] = _counts()
+            rows = [json.loads(ln) for ln in
+                    (exp / "metrics.jsonl").read_text().splitlines()]
+            ips = _img_per_s(out)
+            epochs = (1, 2) if run == "train" else (2, 3)
+            lines = [r for r in rows if r["epoch"] in epochs][-4:]
+            check(len(ips) == 4 and all(
+                math.isfinite(v) for r in lines for k, v in r.items()
+                if k not in ("epoch", "it")), f"{run}: losses {lines}")
+            saved = sorted(p.name for p in (exp / "models").iterdir())
+            want = [f"{n}_{e:03d}.pt" for n in ("disc", "gen")
+                    for e in range(1, epochs[1] + 1)]
+            check(saved == want, f"{run}: checkpoints {saved}")
+            # it 0 and 2 of each epoch so far (a resumed epoch rewrites its
+            # files)
+            grids = {d: len(list((exp / "results" / d).iterdir()))
+                     for d in ("train", "test")}
+            check(grids["train"] == grids["test"] == 2 * epochs[1],
+                  f"{run}: grids {grids}")
+            steps = 2 * CLI_ITERS
+            place, route = (launches[run]["fold_place"],
+                            launches[run]["fold_route"])
+            check(place > 0 and route > 0,
+                  f"{run}: fold_place {place}, fold_route {route} launches")
+            if run == "resume":
+                check("Resume gen from epoch 2" in out
+                      and "Epoch : 1 " not in out, "resume at epoch 2")
+                check(seeks == [CLI_ITERS * 3], f"stream seek {seeks}")
+            emit({"phase": "cli_h36m", "step": f"main_{run}",
+                  "seconds": secs, "card": card, "dataset": "h36m",
+                  "batch": BATCH, "dtype": "bfloat16", "steps": steps,
+                  "cli_img_per_s": ips,
+                  "losses": [{k: r[k] for k in ("epoch", "it", "gen_total",
+                                                "disc_total")}
+                             for r in lines],
+                  "fold_place_launches": place,
+                  "fold_place_idx_launches":
+                      launches[run]["fold_place_idx"],
+                  "fold_route_launches": route,
+                  "scan_fallbacks": launches[run]["scan_fallback"],
+                  "warp_fold_launches": launches[run]["warp_fold"],
+                  # a step's two generator forwards and one backward, and
+                  # the test grid's forward at each display
+                  "fold_place_per_iteration": place / CLI_ITERS / 2,
+                  "fold_route_per_iteration": route / CLI_ITERS / 2,
+                  "save_held_loop_s": list(held), "stream_seeks": seeks})
+    finally:
+        checkpoint.save, BatchStream.seek_batches = save, seek
+
+    out, secs = _cli(cli_test.main, flags + ["--resume", "1"])
+    grids = sorted(p.name for p in
+                   (exp / "results" / "generated").iterdir())
+    # frame i → i + 2: CLI_FRAMES - 2 test pairs a person, 4 people
+    want = [f"images_batch_{b:05d}.png"
+            for b in range(4 * (CLI_FRAMES - 2) // BATCH)]
+    check("epoch-3 weights" in out and grids == want,
+          f"cli.test grids {grids}")
+    emit({"phase": "cli_h36m", "step": "test", "seconds": secs,
+          "grids": len(grids)})
+
+    out, secs = _cli(cli_evaluate.main, flags + ["--resume", "1",
+                                                 "--max_batches", "2"])
+    res = json.loads(out.strip().splitlines()[-1])
+    check(res["epoch"] == 3 and res["num_batches"] == 2
+          and all(math.isfinite(res[k]) for k in (
+              "value", "l1", "psnr", "feat_l2", "feat_l1", "feat_nn"))
+          and -1.0 <= res["value"] <= 1.0, f"cli.evaluate {res}")
+    emit({"phase": "cli_h36m", "step": "evaluate", "seconds": secs,
+          "result": res})
+    tmp.cleanup()
+    return {k: launches["train"][k] + launches["resume"][k]
+            for k in launches["train"]}
+
+
+def phase_fold_h36m() -> None:
+    """The h36m 224² fold through the kernels (fold_place with the argmax,
+    fold_route) against the plain full scan, at a real pose_dim-16 batch's
+    warps and masks (the 5 static-empty parts compacted out on both
+    sides): forward and feature gradient, bf16 and f32. Forwards within
+    the serving limits (BF16_MAX_ABS, BF16_MEAN_ABS, F32_MAX_ABS); f32
+    gradients as phase_fold_grad holds them (GRAD_REL_TOL of the largest),
+    bf16 gradients within BWD_BF16_ULPS of each element's magnitude, both
+    up to GRAD_FLIP_SHARE of the elements (near-ties)."""
+    prep = make_batch_preparer(image_size=H36M, pose_dim=H36M_POSE,
+                               device="cuda")(synthetic_compact_batch(
+                                   np.random.default_rng(5), BATCH, H36M,
+                                   H36M_POSE))
+    static = static_empty_parts(H36M_POSE)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    h, c = H36M[0], 64
+    for dtype in (torch.bfloat16, torch.float32):
+        warps, masks = prep["warps"].to(dtype), prep["masks"].to(dtype)
+        f = torch.randn((BATCH, h, h, c), generator=gen,
+                        device="cuda").to(dtype)
+        g = torch.randn((BATCH, h, h, c), generator=gen,
+                        device="cuda").to(dtype)
+        plan = warp_mod.plan_folds([tuple(f.shape)], warps, masks, dtype,
+                                   windowed=True, static_empty=static)[0]
+        check(plan.windows is not None and not plan.xla and plan.fits,
+              "the h36m batch does not take the kernel-placed fold at 224²")
+        _reset_counts()
+        fk = f.clone().requires_grad_(True)
+        out_k = warp_mod.affine_transform_layer(
+            fk, warps, masks, H36M, windowed=True, static_empty=static,
+            plan=plan)
+        out_k.backward(g)
+        torch.cuda.synchronize()
+        one = _counts()
+        check(one["fold_place_idx"] == 1 and one["fold_route"] == 1,
+              f"h36m fold kernels {one}")
+        fp = f.clone().requires_grad_(True)
+        out_p, _ = warp_mod._fold_scan(fp, warps, plan.masks_r, H36M, "max",
+                                       static_empty=static, emit_idx=False)
+        out_p.backward(g)
+        dname = str(dtype).split(".")[-1]
+        fdiff = (out_k.float() - out_p.float()).abs()
+        ref = fp.grad.float()
+        gdiff = (fk.grad.float() - ref).abs()
+        scale = ref.abs().max().item()
+        if dtype == torch.bfloat16:
+            fwd_ok = fdiff.max().item() <= BF16_MAX_ABS \
+                and fdiff.mean().item() <= BF16_MEAN_ABS
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+            over = gdiff > H36M_BF16_GRAD_ULPS * ulp
+        else:
+            fwd_ok = fdiff.max().item() <= F32_MAX_ABS
+            over = gdiff > GRAD_REL_TOL * scale
+        over = int(over.sum().item())
+        emit({"phase": "fold_h36m_kernel_vs_plain", "dtype": dname,
+              "shape": [BATCH, h, h, c], "static_empty": list(static),
+              "fwd_max_abs_diff": fdiff.max().item(),
+              "fwd_mean_abs_diff": fdiff.mean().item(),
+              "grad_max_abs_ref": scale,
+              "grad_max_abs_diff": gdiff.max().item(),
+              "grad_elements_over_tol": over, "elements": gdiff.numel()})
+        check(fwd_ok, f"h36m {dname} fold forward")
+        check(over <= GRAD_FLIP_SHARE * gdiff.numel(),
+              f"h36m {dname} fold gradient: {over} elements over")
+        del fk, fp, out_k, out_p
+
+
+def phase_pallas_h36m() -> None:
+    """warp_backend='pallas' at h36m: no stage passes the fused fold's
+    gate (224 % 128 != 0), so every stage takes the 'matmul' fold, no
+    warp_fold launches and the output is the 'matmul' backend's, bit for
+    bit (one generator, cuDNN held deterministic for the comparison)."""
+    cfg = GANConfig(image_size=H36M, pose_dim=H36M_POSE, batch_size=BATCH,
+                    compute_dtype=torch.bfloat16, warp_backend="pallas")
+    gen = build_models(cfg, seed=0, device="cuda")
+    step = make_eval_step(cfg, gen, "cuda")
+    batch = synthetic_compact_batch(np.random.default_rng(7), BATCH, H36M,
+                                    H36M_POSE)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _reset_counts()
+        out_pallas, _ = step(batch)
+        one = _counts()
+        gen.warp_backend = "matmul"
+        out_matmul, _ = step(batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(out_pallas, out_matmul)
+    emit({"phase": "pallas_h36m_forward", "warp_fold_launches":
+          one["warp_fold"], "fold_place_launches": one["fold_place"],
+          "scan_fallbacks": one["scan_fallback"], "equal_to_matmul": same,
+          "max_abs_diff": (out_pallas.float() - out_matmul.float()).abs()
+          .max().item()})
+    check(one["warp_fold"] == 0 and one["warp_fold_idx"] == 0,
+          f"'pallas' at h36m launched warp_fold: {one}")
+    check(same, "'pallas' h36m forward differs from 'matmul'")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                 "on one CUDA card (see the module's notes).")
@@ -1124,14 +1399,17 @@ def main(argv=None) -> int:
     pallas_train = phase_train(smi, "pallas")
     phase_fold_grad("pallas")
     stream_launches = phase_fold_stream(smi)
+    cli_launches = phase_cli_h36m(smi)
+    phase_fold_h36m()
+    phase_pallas_h36m()
 
     tpu = "pose_transfer_tpu/ops/"
     rows = (
         ("fold_place",
-         serve_launches["fold_place"] + train_launches["fold_place"],
-         tpu + "warp_fused.py:189", []),
-        ("fold_route", train_launches["fold_route"],
-         tpu + "warp_fused.py:380", []),
+         serve_launches["fold_place"] + train_launches["fold_place"]
+         + cli_launches["fold_place"], tpu + "warp_fused.py:189", []),
+        ("fold_route", train_launches["fold_route"]
+         + cli_launches["fold_route"], tpu + "warp_fused.py:380", []),
         # the forward's two passes (pass 1 :223, pass 2 :243), fused
         ("warp_fold", pallas_serve["warp_fold"] + pallas_train["warp_fold"],
          tpu + "warp_pallas.py:223", [tpu + "warp_pallas.py:243"]),

@@ -1,1 +1,2 @@
-"""Compact batches, synthetic requests and in-step batch preparation."""
+"""Annotations, pair files, the file-backed dataset and its loader, compact
+batches, synthetic data and in-step batch preparation."""

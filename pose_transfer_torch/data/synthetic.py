@@ -1,17 +1,30 @@
-"""Synthetic people: random plausible skeletons and images.
+"""Synthetic people: random plausible skeletons and images, in memory and
+as an on-disk dataset.
 
-Counterpart of ``random_skeleton``, ``random_image`` and the baseline branch
-of ``synthetic_compact_batch`` in ``pose_transfer_tpu/data/synthetic.py``.
+Counterpart of ``random_skeleton``, ``random_image``, ``skeleton_image``,
+``write_synthetic_dataset`` and the baseline branch of
+``synthetic_compact_batch`` in ``pose_transfer_tpu/data/synthetic.py``.
 The same numpy ``Generator`` state gives the same arrays as the JAX
 package's functions, so tests feed both packages from one seed.
+
+``write_synthetic_dataset`` writes the JAX writer's directory layout,
+annotation rows and pair files from the same draws, but saves the images
+as lossless ``.png`` files (``utils.image_io``) where the JAX writer saves
+JPEG: the card's installation has no JPEG codec, and a PNG decodes to
+exactly the drawn pixels.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ..core import transforms_host as th
 from ..core.skeletons import LABELS, LABELS_PAF
+from ..utils.image_io import write_png
+from .annotations import dump_keypoints, write_annotations
+from .pairs import build_pairs, write_csv
 
 # canonical upright template, (x, y) in a unit box, per schema
 _TEMPLATE_16 = {
@@ -64,6 +77,17 @@ def random_image(rng: np.random.Generator,
     return np.kron(small, np.ones((8, 8, 1), np.uint8))[:h, :w]
 
 
+def skeleton_image(kp: np.ndarray, img_size: tuple[int, int],
+                   pose_dim: int) -> np.ndarray:
+    """(H, W, 3) uint8 rendering of the skeleton itself: an image that is a
+    function of its pose, so that pose transfer is learnable."""
+    from ..utils.visualize import draw_pose_from_cords
+
+    radius = max(2, min(img_size) // 32)
+    colors, _ = draw_pose_from_cords(kp, pose_dim, img_size, radius=radius)
+    return colors
+
+
 def synthetic_compact_batch(rng: np.random.Generator, batch_size: int,
                             img_size: tuple[int, int], pose_dim: int,
                             warp_skip: str = "mask") -> dict:
@@ -90,3 +114,37 @@ def synthetic_compact_batch(rng: np.random.Generator, batch_size: int,
             s["mask_kinds"] = np.zeros((1,), np.int32)
         samples.append(s)
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def write_synthetic_dataset(data_dir: str, dataset: str = "fasion",
+                            pose_dim: int = 18, num_people: int = 4,
+                            images_per_person: int = 3,
+                            img_size: tuple[int, int] = (256, 256),
+                            seed: int = 0,
+                            style: str = "noise") -> None:
+    """Write a complete on-disk synthetic dataset in the reference layout:
+
+      <data_dir>/<dataset>-dataset/{train,test}/  (PNG images)
+      <data_dir>/<dataset>-annotation-{train,test}.csv   (sep=':')
+      <data_dir>/<dataset>-pairs-{train,test}.csv (+ -interpol/-check twins)
+    """
+    rng = np.random.default_rng(seed)
+    for split in ("train", "test"):
+        img_dir = os.path.join(data_dir, f"{dataset}-dataset", split)
+        os.makedirs(img_dir, exist_ok=True)
+        rows = []
+        for p in range(num_people):
+            for i in range(images_per_person):
+                name = f"{split}p{p:03d}_{i:04d}.png"
+                kp = random_skeleton(rng, img_size, pose_dim)
+                img = skeleton_image(kp, img_size, pose_dim) \
+                    if style == "skeleton" else random_image(rng, img_size)
+                write_png(os.path.join(img_dir, name), img)
+                rows.append((name, *dump_keypoints(kp)))
+        write_annotations(os.path.join(
+            data_dir, f"{dataset}-annotation-{split}.csv"), rows)
+        pairs = build_pairs([r[0] for r in rows], pose_dim)
+        # -check twins too: a check-mode dataset reads only those
+        for suffix in ("", "-interpol", "-check"):
+            write_csv(pairs, os.path.join(
+                data_dir, f"{dataset}-pairs-{split}{suffix}.csv"))

@@ -1,1 +1,2 @@
-"""The deformable generator and the flax weight mapping."""
+"""The deformable generator, the discriminator, VGG19 features and the flax
+weight mapping."""

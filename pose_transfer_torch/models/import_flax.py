@@ -2,9 +2,10 @@
 
 ``generator_state_dict_from_flax`` and ``discriminator_state_dict_from_flax``
 take the params of ``pose_transfer_tpu.models.DeformableGenerator`` /
-``Discriminator`` as nested dicts of numpy arrays (``{"params": {...}}`` or
-the inner dict) and return the port's state_dicts, under the reference
-PyTorch names. They are the inverse of
+``Discriminator`` (full width or check mode) as nested dicts of numpy
+arrays (``{"params": {...}}`` or the inner dict) and return the port's
+state_dicts, under the reference PyTorch names; ``vgg_state_dict_from_flax``
+does the same for the JAX package's VGG19 features. They are the inverse of
 ``pose_transfer_tpu/models/import_torch.py``:
   conv kernel HWIO → OIHW
   transposed-conv kernel: undo the spatial flip, then
@@ -90,4 +91,21 @@ def discriminator_state_dict_from_flax(params: dict) -> dict:
             sd[f"net.{i + 1}.net.2.weight"] = _scalar(norm["scale"])
             sd[f"net.{i + 1}.net.2.bias"] = _scalar(norm["bias"])
         i += 1
+    return sd
+
+
+def vgg_state_dict_from_flax(params: dict) -> dict:
+    """The JAX package's VGG19 params (``conv{i}_kernel`` HWIO,
+    ``conv{i}_bias``) → a torchvision-layout ``features.{index}.*``
+    state_dict for ``models.vgg.VGG19Features``."""
+    from .vgg import features_layout
+
+    sd: dict = {}
+    conv_i = 0
+    for index, (kind, _) in enumerate(features_layout()):
+        if kind == "conv":
+            sd[f"features.{index}.weight"] = _conv(
+                params[f"conv{conv_i}_kernel"])
+            sd[f"features.{index}.bias"] = _t(params[f"conv{conv_i}_bias"])
+            conv_i += 1
     return sd

@@ -2,11 +2,13 @@
 holds up under a stream of requests.
 
     python3 -m pose_transfer_torch.tools.profile_serve [--batch 8]
-        [--warp_backend {matmul,pallas}]
+        [--warp_backend {matmul,pallas}] [--dataset {fasion,h36m}]
 
-Builds the full-width fashion-256 generator (bf16, seeded random weights;
-``--warp_backend pallas`` puts the 256² and 128² fold stages on the fused
-warp fold) and reports as JSON lines, each naming the backend:
+Builds the full-width generator of the dataset (``fasion``: 256², pose_dim
+18, the 7-stage ladder; ``h36m``: 224², pose_dim 16, the 6-stage ladder;
+bf16, seeded random weights; ``--warp_backend pallas`` puts the fold
+stages the fused warp fold takes on it: 256² and 128² for fasion, none for
+h36m) and reports as JSON lines, each naming the backend and dataset:
 - the device time of one eval step on one prepared batch of synthetic
   requests (CUDA events, mean over 10 steps after warm-up) and its host
   wall time;
@@ -45,6 +47,24 @@ from ..train.engine import GANConfig, build_models, make_eval_step
 
 ITERS = 10        # timed steps per device measurement
 REQUESTS = 384    # requests per serving load: tails from hundreds, not tens
+# --dataset: image size and pose schema as the CLI derives them
+DATASETS = {"fasion": ((256, 256), 18), "h36m": ((224, 224), 16)}
+
+
+def config_for(dataset: str, batch: int, warp_backend: str) -> GANConfig:
+    """The full-width bf16 configuration of ``dataset``."""
+    size, pose_dim = DATASETS[dataset]
+    return GANConfig(image_size=size, pose_dim=pose_dim, batch_size=batch,
+                     compute_dtype=torch.bfloat16, warp_backend=warp_backend)
+
+
+def requests(rng, n: int, cfg: GANConfig) -> list:
+    """``n`` synthetic (image, kp_from, kp_to) requests for ``cfg``."""
+    size = cfg.image_size
+    return [(random_image(rng, size),
+             random_skeleton(rng, size, cfg.pose_dim).astype(np.float32),
+             random_skeleton(rng, size, cfg.pose_dim).astype(np.float32))
+            for _ in range(n)]
 
 
 def _category(name: str) -> str:
@@ -181,6 +201,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--warp_backend", choices=("matmul", "pallas"),
                     default="matmul")
+    ap.add_argument("--dataset", choices=sorted(DATASETS), default="fasion")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -189,21 +210,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = GANConfig(image_size=(256, 256), pose_dim=18,
-                    batch_size=args.batch, compute_dtype=torch.bfloat16,
-                    warp_backend=args.warp_backend)
+    cfg = config_for(args.dataset, args.batch, args.warp_backend)
     tag = {"batch": args.batch, "warp_backend": args.warp_backend,
-           "card": smi}
+           "dataset": args.dataset, "card": smi}
     gen = build_models(cfg, seed=0, device="cuda")
     step = make_eval_step(cfg, gen)
-    rng = np.random.default_rng(0)
-    size = cfg.image_size
     with PoseTransferServer(cfg, gen) as srv:      # its request assembly
-        batch = collate([srv.prepare_request(
-            random_image(rng, size),
-            random_skeleton(rng, size, 18).astype(np.float32),
-            random_skeleton(rng, size, 18).astype(np.float32))
-            for _ in range(args.batch)])
+        batch = collate([srv.prepare_request(*r) for r in requests(
+            np.random.default_rng(0), args.batch, cfg)])
 
     for _ in range(3):
         step(batch)
@@ -254,10 +268,7 @@ def main(argv=None) -> int:
                         for us, k, c in kernels[:15]]}), flush=True)
 
     rng = np.random.default_rng(1)
-    pool = [(random_image(rng, size),
-             random_skeleton(rng, size, 18).astype(np.float32),
-             random_skeleton(rng, size, 18).astype(np.float32))
-            for _ in range(64)]
+    pool = requests(rng, 64, cfg)
     with PoseTransferServer(cfg, gen) as srv:
         _serve_load(srv, pool, 4 * args.batch, None, rng)     # warm-up
         capacity = _serve_load(srv, pool, REQUESTS, None, rng)

@@ -1,13 +1,14 @@
 """Where a training step spends its device time.
 
     python3 -m pose_transfer_torch.tools.profile_train [--batch 8 32]
-        [--warp_backend {matmul,pallas}]
+        [--warp_backend {matmul,pallas}] [--dataset {fasion,h36m}]
 
-For each batch size, builds the full-width fashion-256 training state
-(generator and discriminator, bf16, seeded random weights, ``create_state``;
-``--warp_backend pallas`` puts the 256² and 128² fold stages on the fused
-warp fold) and the two-phase step (``make_train_step``), and reports as
-JSON lines, each naming the backend:
+For each batch size, builds the full-width training state of the dataset
+(``fasion``: 256², pose_dim 18; ``h36m``: 224², pose_dim 16, the 6-stage
+ladder; generator and discriminator, bf16, seeded random weights,
+``create_state``; ``--warp_backend pallas`` puts the fold stages the fused
+warp fold takes on it) and the two-phase step (``make_train_step``), and
+reports as JSON lines, each naming the backend and dataset:
 - the step: device ms (CUDA events around each step, mean over 5 steps after
   2 warm-up steps), host wall ms, train img/s from the wall time and from
   the device time, and peak device memory. Images per step are counted as
@@ -42,7 +43,7 @@ from ..models import networks
 from ..ops import warp as warp_mod
 from ..ops import warp_fused, warp_pallas
 from ..train.engine import GANConfig, create_state, make_train_step
-from .profile_serve import _category, _idle_share
+from .profile_serve import DATASETS, _category, _idle_share, config_for
 
 ITERS = 5         # timed steps per measurement
 WARMUP = 2
@@ -160,10 +161,11 @@ def _layer_ms(step, batches) -> dict:
     return dict(sorted(out.items()))
 
 
-def profile(batch: int, smi: str, warp_backend: str = "matmul") -> None:
-    cfg = GANConfig(image_size=(256, 256), pose_dim=18, batch_size=batch,
-                    compute_dtype=torch.bfloat16, warp_backend=warp_backend)
-    tag = {"batch": batch, "warp_backend": warp_backend, "card": smi}
+def profile(batch: int, smi: str, warp_backend: str = "matmul",
+            dataset: str = "fasion") -> None:
+    cfg = config_for(dataset, batch, warp_backend)
+    tag = {"batch": batch, "warp_backend": warp_backend, "dataset": dataset,
+           "card": smi}
     state = create_state(cfg, seed=0, device="cuda")
     step = make_train_step(cfg, state)
     batches = _batches(cfg, np.random.default_rng(0), 3)
@@ -234,6 +236,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 32])
     ap.add_argument("--warp_backend", choices=("matmul", "pallas"),
                     default="matmul")
+    ap.add_argument("--dataset", choices=sorted(DATASETS), default="fasion")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -242,7 +245,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     for batch in args.batch:
-        profile(batch, smi, args.warp_backend)
+        profile(batch, smi, args.warp_backend, args.dataset)
         torch.cuda.empty_cache()
     return 0
 

@@ -1,1 +1,2 @@
-"""Generator construction and the inference step."""
+"""Model construction, the inference step, the two-phase GAN train step and
+checkpoints."""

@@ -67,8 +67,11 @@ class GANConfig:
     l1_penalty_weight: float = 100.0
     gan_penalty_weight: float = 1.0
     tv_penalty_weight: float = 0.0
-    # only 'none' (L1) is ported; VGG content losses and nn_loss are not
+    # only 'none' (L1) trains; VGG content losses are not ported
     content_loss_layer: str = "none"
+    # the tiny overfit-smoke model: the first 2 encoder stages, a decoder
+    # of (dec[-2], 3), a discriminator of blocks 128, 256 and 1
+    check_mode: bool = False
 
     @property
     def input_nc(self) -> int:
@@ -79,6 +82,37 @@ class GANConfig:
     @property
     def num_warp_transforms(self) -> int:
         return 10 if self.warp_skip == "mask" else 1
+
+    @property
+    def filters(self) -> tuple[tuple[int, ...], tuple[int, ...]]:
+        """(encoder, decoder) filter ladders for the image size."""
+        enc = encoder_filters_for(self.image_size)
+        dec = decoder_filters_for(self.image_size)
+        if self.check_mode:
+            return enc[:2], (dec[-2], 3)
+        return enc, dec
+
+    @classmethod
+    def from_opt(cls, opt) -> "GANConfig":
+        """Build from a parsed reference-style options object or dict:
+        every option named as a field, ``image_size`` as a tuple,
+        ``checkMode`` as ``check_mode``, the CLI's ``warp_windowed``
+        ('auto' | '0' | '1') as None or a bool and a ``compute_dtype``
+        name as the torch dtype."""
+        if not isinstance(opt, dict):
+            opt = vars(opt)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in opt.items() if k in fields}
+        kwargs["image_size"] = tuple(opt["image_size"])
+        kwargs["use_input_pose"] = bool(opt["use_input_pose"])
+        if "checkMode" in opt:
+            kwargs["check_mode"] = bool(opt["checkMode"])
+        ww = kwargs.get("warp_windowed")
+        if isinstance(ww, str):
+            kwargs["warp_windowed"] = None if ww == "auto" else ww == "1"
+        if isinstance(kwargs.get("compute_dtype"), str):
+            kwargs["compute_dtype"] = getattr(torch, kwargs["compute_dtype"])
+        return cls(**kwargs)
 
 
 def auto_windowed(config: GANConfig, device: torch.device) -> bool:
@@ -96,16 +130,16 @@ def auto_windowed(config: GANConfig, device: torch.device) -> bool:
 
 def build_models(config: GANConfig, seed: int = 0,
                  device=None) -> DeformableGenerator:
-    """The generator for ``config``, Glorot-initialised from ``seed``, in
-    eval mode on ``device`` (default ``cuda``); windowing by
-    ``auto_windowed``. ``warp_backend='exact'`` raises NotImplementedError.
+    """The generator for ``config`` (``check_mode``: the tiny model),
+    Glorot-initialised from ``seed``, in eval mode on ``device`` (default
+    ``cuda``); windowing by ``auto_windowed``. ``warp_backend='exact'`` raises NotImplementedError.
     """
     device = resolve_device(device)
     windowed = auto_windowed(config, device)
+    enc, dec = config.filters
     gen = DeformableGenerator(
         pose_dim=config.pose_dim, image_size=config.image_size,
-        nfilters_enc=encoder_filters_for(config.image_size),
-        nfilters_dec=decoder_filters_for(config.image_size),
+        nfilters_enc=enc, nfilters_dec=dec,
         warp_skip=config.warp_skip, warp_agg=config.warp_agg,
         use_input_pose=config.use_input_pose, warp_windowed=windowed,
         warp_backend=config.warp_backend, warp_place=config.warp_place,
@@ -146,9 +180,10 @@ def make_eval_step(config: GANConfig, gen: DeformableGenerator, device=None):
 def _check_train_config(config: GANConfig) -> None:
     if config.content_loss_layer != "none":
         raise NotImplementedError(
-            f"content_loss_layer={config.content_loss_layer!r}: the VGG "
-            "content loss and nn_loss are not ported yet (ROADMAP.md §A); "
-            "only L1 reconstruction ('none') trains")
+            f"content_loss_layer={config.content_loss_layer!r}: training "
+            "with the VGG content loss and nn_loss's backward is not ported "
+            "(ROADMAP.md §A item 6); only L1 reconstruction ('none') "
+            "trains")
     if config.training_ratio < 1:
         raise ValueError("training_ratio must be >= 1")
 
@@ -183,7 +218,8 @@ def create_state(config: GANConfig, seed: int = 0,
         for s in np.random.SeedSequence(seed).spawn(3))
     gen = build_models(config, gen_seed, device)
     # the discriminator's input: the packed input with the candidate image
-    disc = Discriminator(config.input_nc + 3, dtype=config.compute_dtype,
+    disc = Discriminator(config.input_nc + 3, check_mode=config.check_mode,
+                         dtype=config.compute_dtype,
                          device="meta").to_empty(device=device)
     g = torch.Generator(device=device)
     g.manual_seed(disc_seed)

@@ -16,8 +16,9 @@ from pose_transfer_torch.models.networks import (DeformableGenerator,
                                                  Discriminator, init_weights)
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.tools import bench_fold
-from pose_transfer_torch.tools.profile_serve import (_category, _idle_share,
-                                                     _serve_load)
+from pose_transfer_torch.tools.profile_serve import (DATASETS, _category,
+                                                     _idle_share, _serve_load,
+                                                     config_for, requests)
 from pose_transfer_torch.tools.profile_train import _batches
 from pose_transfer_torch.train import engine, losses
 from pose_transfer_torch.train.engine import GANConfig
@@ -109,6 +110,62 @@ def test_profile_train_batches_drive_a_ratio_2_step():
     total, ll, ad = metrics["gen"].tolist()
     tv = losses.total_variation_loss(out).item()
     assert tv > 0 and total == pytest.approx(ll + ad + 0.5 * tv, rel=1e-6)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+@pytest.mark.parametrize("dataset", sorted(DATASETS))
+def test_profiler_configs_per_dataset(dataset):
+    """--dataset: fasion-256 with pose_dim 18 and the 7-stage ladder, h36m
+    at 224² with pose_dim 16 and the 6-stage ladder, both bf16 at full
+    width (the h36m generator built on the meta device)."""
+    cfg = config_for(dataset, 8, "matmul")
+    size, pose_dim = DATASETS[dataset]
+    assert (cfg.image_size, cfg.pose_dim, cfg.batch_size) == (size, pose_dim,
+                                                              8)
+    assert cfg.compute_dtype == torch.bfloat16 and cfg.input_nc == \
+        3 + 2 * pose_dim
+    enc, dec = cfg.filters
+    assert len(enc) == (6 if dataset == "h36m" else 7) == len(dec)
+    gen = DeformableGenerator(pose_dim, size, enc, dec, device="meta")
+    assert gen.encoder_app.net[0].in_channels == 3 + pose_dim
+    reqs = requests(np.random.default_rng(0), 2, cfg)
+    assert reqs[0][0].shape == (*size, 3)
+    assert reqs[0][1].shape == (pose_dim, 2)
+
+
+def test_serve_load_h36m_requests():
+    """The load generator with pose_dim-16 requests against a narrow h36m
+    server (the static-empty parts of the fold compacted out)."""
+    size = (64, 64)
+    gen = DeformableGenerator(16, size, (8, 16, 16, 16), (16, 16, 16, 3))
+    init_weights(gen, torch.Generator().manual_seed(0))
+    cfg = GANConfig(image_size=size, pose_dim=16, batch_size=2)
+    rng = np.random.default_rng(0)
+    with PoseTransferServer(cfg, gen.eval(), device="cpu") as srv:
+        got = _serve_load(srv, requests(rng, 3, cfg), 4, None, rng)
+    assert (got["sent"], got["answered"], got["failed"]) == (4, 4, 0)
+
+
+def test_profile_train_batches_drive_an_h36m_step():
+    """The profiler's pose_dim-16 batches through a narrow train step."""
+    size = (64, 64)
+    cfg = GANConfig(image_size=size, pose_dim=16, batch_size=2,
+                    warp_windowed=True)
+    fake, real, gen_b = _batches(cfg, np.random.default_rng(0), 1)[0]
+    assert gen_b["kp_from"].shape == (2, 16, 2)
+    gen = DeformableGenerator(16, size, (8, 16, 16, 16), (16, 16, 16, 3),
+                              warp_windowed=True)
+    disc = Discriminator(cfg.input_nc + 3)
+    g = torch.Generator().manual_seed(0)
+    init_weights(gen, g)
+    init_weights(disc, g)
+    state = engine.TrainState(
+        gen=gen, disc=disc,
+        gen_opt=engine.make_optimizer(cfg, gen.parameters()),
+        disc_opt=engine.make_optimizer(cfg, disc.parameters()),
+        rng=torch.Generator().manual_seed(1))
+    metrics, out = engine.make_train_step(cfg, state)(fake, real, gen_b)
+    assert out.shape == (2, 64, 64, 3) and state.step == 1
     assert all(torch.isfinite(v).all() for v in metrics.values())
 
 
