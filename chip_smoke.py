@@ -60,9 +60,36 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               against the plain full scan (forward and feature gradient,
               bf16 and f32), and the 'pallas' backend's h36m forward, which
               launches no warp_fold and equals the 'matmul' one
-  9. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
+  9. recipe   the reference's full_fasion recipe at full width (fashion-256,
+              bf16, batch 8: VGG19 block1_conv2 content loss over seeded
+              random filters, nn_loss of area 5, L1 weight 1.0): one
+              warm-up and 3 steps on 'matmul', one warm-up and one step on
+              'pallas'; losses finite, both nets' weights moved, the fold
+              kernels' launches counted per step; then nn_loss's f32
+              gradient (the argmin-routed Function) against autograd
+              through its plain primal at a step's own VGG features,
+              bit for bit where one shift is the unique minimum, and to
+              the first minimal shift's routing everywhere, with both
+              versions' times and peak memory
+ 10. stacked  the stacked generator (num_stacks 4, fashion-256, bf16)
+              behind PoseTransferServer on both backends: a full batch of
+              8 and a padded partial batch of 3, 4x the baseline's fold
+              launches a forward, 'pallas' held to 'matmul' within the
+              serving limits stage by stage (each 'pallas' stage fed the
+              'matmul' stage's input; the served images' difference, 4
+              chained bf16 generators, reported beside); then one warm-up
+              and 3 stacked train steps on 'matmul' (launches, peak memory)
+ 11. unet     the U-Net behind PoseTransferServer: one batch of 8, no fold
+              kernel launched
+ 12. cli_recipe the CLIs at full width on a seeded fasion PNG dataset (4
+              people x 3 images, batch 8, bf16): a full_fasion content-loss
+              run of 3 iterations, a stacked run that warm-starts from its
+              checkpoint, cli.test's stacked grids, cli.evaluate's finite
+              metrics on the last stage
+ 13. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
      random set, as since their first port; ms_main, plain_ms_main and
-     bound_ms_main on a training step's own inputs), then the last line
+     bound_ms_main on a training step's own inputs; launches summed over
+     every path that drives them), then the last line
      {"ok": true, "device": {...}}
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -98,6 +125,8 @@ from pose_transfer_torch.data.loader import BatchStream
 from pose_transfer_torch.data.dataset import collate
 from pose_transfer_torch.data.device import make_batch_preparer
 from pose_transfer_torch.data.synthetic import random_image, random_skeleton
+from pose_transfer_torch.models import vgg as vgg_mod
+from pose_transfer_torch.ops import nn_loss as nn_loss_mod
 from pose_transfer_torch.ops import warp as warp_mod
 from pose_transfer_torch.ops import warp_fused
 from pose_transfer_torch.ops import warp_pallas
@@ -105,9 +134,11 @@ from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.data.synthetic import synthetic_compact_batch
 from pose_transfer_torch.tools import bench_fold
 from pose_transfer_torch.train import checkpoint
-from pose_transfer_torch.train.engine import (GANConfig, build_models,
-                                              create_state, make_eval_step,
+from pose_transfer_torch.train.engine import (GANConfig, batch_preparer,
+                                              build_models, create_state,
+                                              make_eval_step,
                                               make_train_step)
+from pose_transfer_torch.utils.image_io import read_image
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -184,6 +215,22 @@ CLI_ITERS, CLI_FRAMES = 3, 6
 # of 18.875), while 6 399 of 6.4 M elements lie beyond 2 ulps of their own
 # magnitude on the CPU, so that per-element bound does not apply here.
 H36M_BF16_GRAD_ULPS = 4
+# phases 9-12: the reference's full_fasion recipe and the stacked generator
+RECIPE = dict(content_loss_layer="block1_conv2", nn_loss_area_size=5,
+              l1_penalty_weight=1.0)
+NUM_STACKS = 4
+# fold kernel launches of one baseline fashion-256 forward (windowed stages
+# 256², 128², 64² on 'matmul'; 64² on 'pallas', whose fused fold takes 256²
+# and 128²) and of one training step (two forwards, one backward); the
+# stacked generator runs NUM_STACKS such forwards
+PER_FORWARD = {"matmul": {"fold_place": 3, "warp_fold": 0},
+               "pallas": {"fold_place": 1, "warp_fold": 2}}
+PER_STEP = {"matmul": {"fold_place": 6, "fold_place_idx": 3, "fold_route": 3,
+                       "warp_fold": 0, "warp_fold_idx": 0,
+                       "warp_fold_bwd": 0},
+            "pallas": {"fold_place": 2, "fold_place_idx": 1, "fold_route": 1,
+                       "warp_fold": 4, "warp_fold_idx": 2,
+                       "warp_fold_bwd": 2}}
 
 
 def emit(obj) -> None:
@@ -745,8 +792,7 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
     same weights and inputs, in bf16 and f32: on 'matmul' the kernel-placed
     fold against the plain full-scan fold, on 'pallas' the fused fold
     against the 'matmul' backend."""
-    cfg = GANConfig(image_size=(256, 256), pose_dim=18, batch_size=BATCH,
-                    compute_dtype=torch.bfloat16, warp_backend=backend)
+    cfg = _fashion(backend)
     gen = build_models(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in gen.parameters())
     check(n_params == GEN_PARAMS, f"generator has {n_params} parameters")
@@ -834,87 +880,93 @@ def _stacked(batch: dict) -> dict:
     return {k: v[None] for k, v in batch.items()}
 
 
+def _fashion(backend="matmul", **kw) -> GANConfig:
+    return GANConfig(image_size=(256, 256), pose_dim=18, batch_size=BATCH,
+                     compute_dtype=torch.bfloat16, warp_backend=backend, **kw)
+
+
+def _steps(cfg: GANConfig, steps: int, seed: int) -> dict:
+    """``create_state`` and ``make_train_step`` for ``cfg``: one warm-up
+    and ``steps`` steps on synthetic batches, the fold kernels counted over
+    the timed steps. Checks the losses finite and every parameter of both
+    nets moved; returns the state, the last step's output and gen batch,
+    and the readings."""
+    state = create_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg, state)
+    rng = np.random.default_rng(seed)
+
+    def draw():
+        return synthetic_compact_batch(rng, cfg.batch_size, cfg.image_size,
+                                       cfg.pose_dim, gen_type=cfg.gen_type,
+                                       num_stacks=cfg.num_stacks)
+
+    batches = [(_stacked(draw()), _stacked(draw()), draw())
+               for _ in range(steps + 1)]
+    step(*batches[0])                                   # warm-up
+    torch.cuda.synchronize()
+    nets = (*state.gen.parameters(), *state.disc.parameters())
+    before = [p.detach().clone() for p in nets]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = [step(*b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    rows = {k: torch.stack([m[k] for m, _ in results]).tolist()
+            for k in ("gen", "disc")}
+    check(all(np.isfinite(rows[k]).all() for k in rows), f"losses {rows}")
+    unmoved = sum(torch.equal(a, b.detach()) for a, b in zip(before, nets))
+    check(unmoved == 0, f"{unmoved} parameter tensors did not move")
+    return {"state": state, "out": results[-1][1], "gen_batch":
+            batches[-1][2], "counts": counts, "rows": rows,
+            "step_ms": wall_s / steps * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _check_step_launches(counts: dict, backend: str, steps: int,
+                         stacks: int, what: str) -> None:
+    """Every fold kernel's launches are ``stacks`` x a baseline step's, a
+    scan fallback standing in for a fold_place launch."""
+    want = {k: v * steps * stacks for k, v in PER_STEP[backend].items()}
+    got = {k: counts[k] for k in want}
+    got["fold_place"] += counts["scan_fallback"]
+    check(got == want, f"{what}: launches {got} != {want}")
+    check(counts["fold_place"] > 0, f"{what}: no fold_place launch")
+
+
 def phase_train(card: str, backend: str = "matmul") -> dict:
     """Full-width bf16 training steps through the entry points a trainer
     calls: ``create_state`` then ``make_train_step``, on the warp
     ``backend``."""
-    cfg = GANConfig(image_size=(256, 256), pose_dim=18, batch_size=BATCH,
-                    compute_dtype=torch.bfloat16, warp_backend=backend)
-    state = create_state(cfg, seed=0, device="cuda")
+    cfg = _fashion(backend)
+    run = _steps(cfg, TRAIN_STEPS, seed=2)
+    state, launches = run["state"], run["counts"]
     n_gen = sum(p.numel() for p in state.gen.parameters())
     n_disc = sum(p.numel() for p in state.disc.parameters())
     check(n_gen == GEN_PARAMS, f"generator has {n_gen} parameters")
     check(n_disc == DISC_PARAMS, f"discriminator has {n_disc} parameters")
     check(state.gen.warp_windowed, "windowed fold on for CUDA training")
-    step = make_train_step(cfg, state)
-    rng = np.random.default_rng(2)
-
-    def draw():
-        return synthetic_compact_batch(rng, BATCH, cfg.image_size, 18)
-
-    batches = [(_stacked(draw()), _stacked(draw()), draw())
-               for _ in range(TRAIN_STEPS + 1)]
-    step(*batches[0])                                   # warm-up
-    torch.cuda.synchronize()
-    before = [p.detach().clone() for p in (*state.gen.parameters(),
-                                            *state.disc.parameters())]
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    metrics = [step(*b)[0] for b in batches[1:]]
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES}
-    fallbacks = warp_mod.COUNTS["scan_fallback"]
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-
-    rows = {k: torch.stack([m[k] for m in metrics]).tolist()
-            for k in ("gen", "disc")}
-    check(all(np.isfinite(rows[k]).all() for k in rows), f"losses {rows}")
-    after = [p.detach() for p in (*state.gen.parameters(),
-                                  *state.disc.parameters())]
-    unmoved_gen = sum(torch.equal(a, b) for a, b in
-                      zip(before[:len(list(state.gen.parameters()))], after))
-    unmoved = sum(torch.equal(a, b) for a, b in zip(before, after))
-    check(unmoved == 0, f"{unmoved_gen} generator and "
-          f"{unmoved - unmoved_gen} discriminator tensors did not move")
-    place, route = launches["fold_place"], launches["fold_route"]
-    # windowed stages: 256², 128² and 64² on 'matmul'; 64² on 'pallas',
-    # whose fused fold takes 256² and 128²
-    windowed = 3 if backend == "matmul" else 1
-    check(place + fallbacks == 2 * windowed * TRAIN_STEPS,
-          f"{place} fold_place launches + {fallbacks} fallbacks != "
-          f"{2 * windowed} per step (two forwards x {windowed} windowed "
-          "stages)")
-    if backend == "pallas":
-        fused = (launches["warp_fold"], launches["warp_fold_idx"],
-                 launches["warp_fold_bwd"])
-        check(fused == (4 * TRAIN_STEPS, 2 * TRAIN_STEPS, 2 * TRAIN_STEPS),
-              f"warp_fold / with the argmax / warp_fold_bwd launches "
-              f"{fused} != 4 / 2 / 2 per step")
-    check(route == launches["fold_place_idx"],
-          f"{route} fold_route launches != {launches['fold_place_idx']} "
-          "generator-phase fold_place launches with the argmax")
-    check(route > 0 and place > 0, "training launched no fold kernel")
+    _check_step_launches(launches, backend, TRAIN_STEPS, 1, "train")
     images = BATCH * (2 * cfg.training_ratio + 1)
     emit({"phase": "train", "backend": backend, "card": card, "batch": BATCH,
           "dtype": "bfloat16",
           "steps": TRAIN_STEPS, "gen_params": n_gen, "disc_params": n_disc,
-          "losses": {"gen [total, ll, ad]": rows["gen"],
-                     "disc [total, true, fake]": rows["disc"]},
-          "fold_place_launches": place,
+          "losses": {"gen [total, ll, ad]": run["rows"]["gen"],
+                     "disc [total, true, fake]": run["rows"]["disc"]},
+          "fold_place_launches": launches["fold_place"],
           "fold_place_idx_launches": launches["fold_place_idx"],
-          "fold_route_launches": route, "scan_fallbacks": fallbacks,
+          "fold_route_launches": launches["fold_route"],
+          "scan_fallbacks": launches["scan_fallback"],
           "warp_fold_launches": launches["warp_fold"],
           "warp_fold_idx_launches": launches["warp_fold_idx"],
           "warp_fold_bwd_launches": launches["warp_fold_bwd"],
-          "step_ms": wall_s / TRAIN_STEPS * 1e3,
+          "step_ms": run["step_ms"],
           # 3 steps after one warm-up: a smoke reading, not a benchmark
           # (tools/profile_train.py measures); images per step counted as
           # N·(2·training_ratio + 1), the generator forwards' inputs
-          "smoke_train_img_per_s": images * TRAIN_STEPS / wall_s,
-          "peak_mem_gb": peak_gb})
-    del state, step, before, after
+          "smoke_train_img_per_s": images / run["step_ms"] * 1e3,
+          "peak_mem_gb": run["peak_mem_gb"]})
     return launches
 
 
@@ -1340,6 +1392,298 @@ def phase_pallas_h36m() -> None:
     check(same, "'pallas' h36m forward differs from 'matmul'")
 
 
+def _time_grad(fn, x, y, iters=5) -> tuple[float, float]:
+    """(ms, peak GB above the inputs) of ``fn(x, y)`` forward and backward
+    in x, CUDA events around each call after a warm-up."""
+    def call():
+        x.grad = None
+        fn(x, y).backward()
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_cuda(call, iters)
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_recipe(card: str) -> dict:
+    """The full_fasion recipe's step at full width on both backends, then
+    nn_loss's gradient on the card; returns the fold kernel launches of
+    the timed steps."""
+    total = {}
+    for backend, steps in (("matmul", TRAIN_STEPS), ("pallas", 1)):
+        cfg = _fashion(backend, **RECIPE)
+        run = _steps(cfg, steps, seed=8)
+        st = run["state"]
+        check(st.vgg is not None and not any(
+            p.requires_grad for p in st.vgg.parameters()),
+            "the state's VGG19 is missing or not frozen")
+        _check_step_launches(run["counts"], backend, steps, 1,
+                             f"recipe {backend}")
+        emit({"phase": "recipe", "backend": backend, "card": card,
+              "batch": BATCH, "dtype": "bfloat16", "steps": steps, **RECIPE,
+              "losses": {"gen [total, ll, ad]": run["rows"]["gen"],
+                         "disc [total, true, fake]": run["rows"]["disc"]},
+              "launches": {k: run["counts"][k] for k in PER_STEP[backend]},
+              "scan_fallbacks": run["counts"]["scan_fallback"],
+              "step_ms": run["step_ms"], "peak_mem_gb": run["peak_mem_gb"]})
+        for k, v in run["counts"].items():
+            total[k] = total.get(k, 0) + v
+        if backend == "matmul":
+            nn_case = (st.vgg, run["out"], run["gen_batch"], cfg)
+        del st, run
+    _check_nn_loss(*nn_case)
+    return total
+
+
+def _check_nn_loss(vgg, out_gen, gen_batch, cfg) -> None:
+    """nn_loss (area 5) at a step's own block1_conv2 features (f32, N = 8,
+    256², 64 channels): the Function's gradient of the generated image's
+    features against autograd through the plain primal, bit for bit at
+    every pixel whose minimum one shift alone reaches (at a tie autograd
+    splits the cotangent, the Function routes it to the first shift: both
+    valid subgradients), and at every pixel against −sign(ref − pred) of
+    the first shift that reaches the minimum, scaled by 1/(N·H·W); the
+    share of tied pixels; both versions' forward-and-backward times and
+    peak memory."""
+    prep = batch_preparer(cfg, "cuda")
+    layer = vgg_mod.get_layer_ind(cfg.content_loss_layer)
+    with torch.no_grad():
+        target = prep(gen_batch)["target"]
+        f_gen = vgg_mod.extract_features(vgg, out_gen, layer)
+        f_tgt = vgg_mod.extract_features(vgg, target, layer)
+    a = cfg.nn_loss_area_size
+    grads, times = {}, {}
+    for name, fn in (("function", nn_loss_mod.nn_loss),
+                     ("plain", nn_loss_mod.nn_loss_reference)):
+        x = f_gen.clone().requires_grad_(True)
+        val = fn(x, f_tgt, a, a)
+        val.backward()
+        grads[name] = (val.item(), x.grad)
+        times[name] = _time_grad(lambda p, q, fn=fn: fn(p, q, a, a), x,
+                                 f_tgt)
+    with torch.no_grad():
+        pad = nn_loss_mod._pad_gt(f_tgt, a, a)
+        n, h, w, _ = f_gen.shape
+        shifts = [(i, j) for i in range(a) for j in range(a)]
+        norms = torch.stack([(pad[:, i:i + h, j:j + w] - f_gen).abs()
+                             .sum(-1) for i, j in shifts])
+        at_min = norms == norms.min(0).values
+        unique = at_min.sum(0) == 1
+        first = at_min.to(torch.uint8).argmax(0)    # the first maximum
+        rule = torch.zeros_like(f_gen)
+        for k, (i, j) in enumerate(shifts):
+            rule = torch.where((first == k)[..., None],
+                               -torch.sign(pad[:, i:i + h, j:j + w] - f_gen),
+                               rule)
+        rule = rule / (n * h * w)
+    (v_fn, g_fn), (v_plain, g_plain) = grads["function"], grads["plain"]
+    differ = (g_fn != g_plain).any(-1)
+    res = {"phase": "nn_loss_vs_plain", "shape": list(f_gen.shape),
+           "dtype": str(f_gen.dtype).split(".")[-1], "area": a,
+           "value": v_fn, "value_plain": v_plain,
+           "tied_pixel_share": 1.0 - unique.float().mean().item(),
+           "pixels_differing": int(differ.sum().item()),
+           "pixels_differing_untied": int((differ & unique).sum().item()),
+           "pixels_off_first_shift_rule": int((g_fn != rule).any(-1).sum()
+                                              .item()),
+           "ms": times["function"][0], "plain_ms": times["plain"][0],
+           "peak_gb": times["function"][1],
+           "plain_peak_gb": times["plain"][1]}
+    emit(res)
+    check(v_fn == v_plain, "nn_loss value differs from its plain primal")
+    check(f_gen.dtype == torch.float32, "content features not f32")
+    check(res["pixels_differing_untied"] == 0,
+          "nn_loss gradient differs from autograd where the min is unique")
+    check(res["pixels_off_first_shift_rule"] == 0,
+          "nn_loss gradient does not route to the first minimal shift")
+
+
+def phase_stacked(card: str) -> dict:
+    """The stacked generator behind the server on both backends (a full
+    and a padded partial batch), 'pallas' held to 'matmul' stage by stage,
+    then stacked train steps on 'matmul'; returns the fold kernel
+    launches."""
+    cfg = _fashion(gen_type="stacked", num_stacks=NUM_STACKS)
+    gen = build_models(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in gen.parameters())
+    check(n_params == GEN_PARAMS, f"stacked generator has {n_params} "
+          "parameters (one shared generator)")
+    reqs = make_requests(np.random.default_rng(9), BATCH + 3, (256, 256))
+    total, full = {}, {}
+    for backend in ("matmul", "pallas"):
+        gen.generator.warp_backend = backend
+        bcfg = dataclasses.replace(cfg, warp_backend=backend)
+        torch.cuda.reset_peak_memory_stats()
+        with PoseTransferServer(bcfg, gen, max_wait_ms=200.0) as srv:
+            check_images(srv.generate(reqs[:BATCH]), BATCH, "warm-up")
+            srv.reset_stats()
+            _reset_counts()
+            full[backend] = srv.generate(reqs[:BATCH])
+            partial = srv.generate(reqs[BATCH:])
+            counts = _counts()
+            stats = srv.stats()
+            batch = collate([srv.prepare_request(*r) for r in reqs[:BATCH]])
+        check_images(full[backend], BATCH, f"stacked {backend} full batch")
+        check_images(partial, 3, f"stacked {backend} partial batch")
+        forwards = stats["batches"]
+        per = PER_FORWARD[backend]
+        got = {"fold_place": counts["fold_place"] + counts["scan_fallback"],
+               "warp_fold": counts["warp_fold"]}
+        want = {k: NUM_STACKS * v * forwards for k, v in per.items()}
+        check(forwards == 2 and got == want
+              and counts["warp_fold_idx"] == counts["fold_place_idx"] == 0,
+              f"stacked {backend}: {forwards} forwards, launches {got} != "
+              f"{want}")
+        emit({"phase": "stacked_serve", "backend": backend, "card": card,
+              "num_stacks": NUM_STACKS, "forwards": forwards,
+              "fold_place_per_forward": counts["fold_place"] / forwards,
+              "warp_fold_per_forward": counts["warp_fold"] / forwards,
+              "scan_fallbacks": counts["scan_fallback"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+              **stats})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    # the backends stage by stage: each 'pallas' stage is fed the 'matmul'
+    # stage's own input and held to the serving limits of one forward
+    # (BF16_MAX_ABS, BF16_MEAN_ABS). The served images are 4 chained bf16
+    # generators, each carrying the last one's single-ulp flips into its
+    # input, so their difference is reported beside, not held to those
+    # limits
+    calls = []
+    hook = gen.generator.register_forward_hook(
+        lambda m, args, out: calls.append((args, out)))
+    gen.generator.warp_backend = "matmul"
+    try:
+        make_eval_step(cfg, gen)(batch)
+    finally:
+        hook.remove()
+    gen.generator.warp_backend = "pallas"
+    stages = []
+    with torch.inference_mode():
+        for args, ref in calls:
+            d = (gen.generator(*args).float() - ref.float()).abs()
+            stages.append([d.max().item(), d.mean().item()])
+    served = np.abs(full["pallas"] - full["matmul"])
+    emit({"phase": "stacked_pallas_vs_matmul", "dtype": "bfloat16",
+          "stage_max_mean_abs_diff": stages,
+          "served_max_abs_diff": float(served.max()),
+          "served_mean_abs_diff": float(served.mean())})
+    check(len(stages) == NUM_STACKS and all(
+        mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS for mx, mean in stages),
+        f"stacked 'pallas' stages differ from 'matmul': {stages}")
+    del gen, calls
+
+    run = _steps(cfg, TRAIN_STEPS, seed=10)
+    _check_step_launches(run["counts"], "matmul", TRAIN_STEPS, NUM_STACKS,
+                         "stacked train")
+    check(tuple(run["out"].shape) == (NUM_STACKS, BATCH, *cfg.image_size, 3),
+          f"stacked step output {tuple(run['out'].shape)}")
+    emit({"phase": "stacked_train", "backend": "matmul", "card": card,
+          "batch": BATCH, "dtype": "bfloat16", "num_stacks": NUM_STACKS,
+          "steps": TRAIN_STEPS,
+          "losses": {"gen [total, ll, ad]": run["rows"]["gen"],
+                     "disc [total, true, fake]": run["rows"]["disc"]},
+          "launches": {k: run["counts"][k] for k in PER_STEP["matmul"]},
+          "scan_fallbacks": run["counts"]["scan_fallback"],
+          "step_ms": run["step_ms"], "peak_mem_gb": run["peak_mem_gb"]})
+    for k, v in run["counts"].items():
+        total[k] += v
+    return total
+
+
+def phase_unet(card: str) -> None:
+    """The U-Net behind the server: one batch of 8, no fold kernel."""
+    cfg = _fashion(gen_type="unet")
+    gen = build_models(cfg, seed=0, device="cuda")
+    reqs = make_requests(np.random.default_rng(11), BATCH, (256, 256))
+    with PoseTransferServer(cfg, gen, max_wait_ms=200.0) as srv:
+        _reset_counts()
+        out = srv.generate(reqs)
+        counts = _counts()
+    check_images(out, BATCH, "unet batch")
+    check(not any(counts.values()), f"the U-Net launched {counts}")
+    emit({"phase": "unet_serve", "card": card, "batch": BATCH,
+          "gen_params": sum(p.numel() for p in gen.parameters()),
+          "launches": counts})
+
+
+def phase_cli_recipe(card: str) -> dict:
+    """The CLIs at full width on fashion: the full_fasion content-loss run,
+    the stacked run warm-started from it, test and evaluate; returns the
+    fold kernel launches of the two training runs."""
+    tmp = tempfile.TemporaryDirectory(prefix="cli_recipe_")
+    root = Path(tmp.name)
+    data = str(root / "data") + "/"
+    flags = ["--data_Dir", data, "--dataset", "fasion", "--pose_dim", "18",
+             "--compute_dtype", "bfloat16", "--batch_size", str(BATCH),
+             "--iters_per_epoch", str(CLI_ITERS), "--number_of_epochs", "1",
+             "--checkpoint_ratio", "1", "--display_ratio", "2",
+             "--checkMode", "0", "--exp_root", str(root / "exp"),
+             "--device", "cuda"]
+    _, secs = _cli(cli_data.main, ["--out", data, "--dataset", "fasion",
+                                   "--pose_dim", "18"])
+    emit({"phase": "cli_recipe", "step": "make_synthetic_data",
+          "seconds": secs})
+    recipe = ["--content_loss_layer", RECIPE["content_loss_layer"],
+              "--nn_loss_area_size", str(RECIPE["nn_loss_area_size"]),
+              "--l1_penalty_weight", str(RECIPE["l1_penalty_weight"])]
+    stacked = ["--expID", "stacked", "--gen_type", "stacked",
+               "--num_stacks", str(NUM_STACKS)]
+    warm = root / "exp" / "full_fasion" / "models" / "gen_001.pt"
+    total = {}
+    for run, extra in (("full_fasion", ["--expID", "full_fasion", *recipe]),
+                       ("stacked", stacked)):
+        _reset_counts()
+        out, secs = _cli(cli_main.main, flags + extra)
+        counts = _counts()
+        exp = root / "exp" / run
+        rows = [json.loads(ln) for ln in
+                (exp / "metrics.jsonl").read_text().splitlines()]
+        check(len(rows) == 2 and all(
+            math.isfinite(v) for r in rows for k, v in r.items()
+            if k not in ("epoch", "it")), f"{run}: losses {rows}")
+        check((exp / "models" / "gen_001.pt").exists(),
+              f"{run}: no checkpoint")
+        if run == "stacked":
+            check(f"Warm-started stacked generator from {warm}" in out,
+                  "the stacked run did not warm-start")
+        check(counts["fold_place"] > 0 and counts["fold_route"] > 0,
+              f"{run}: launches {counts}")
+        emit({"phase": "cli_recipe", "step": f"main_{run}", "card": card,
+              "seconds": secs, "batch": BATCH, "dtype": "bfloat16",
+              "cli_img_per_s": _img_per_s(out),
+              "losses": [{k: r[k] for k in ("it", "gen_total", "gen_ll",
+                                            "disc_total")} for r in rows],
+              "fold_place_launches": counts["fold_place"],
+              "fold_place_idx_launches": counts["fold_place_idx"],
+              "fold_route_launches": counts["fold_route"],
+              "scan_fallbacks": counts["scan_fallback"]})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    exp = root / "exp" / "stacked"
+    out, secs = _cli(cli_test.main, flags + stacked + ["--resume", "1"])
+    grids = sorted((exp / "results" / "generated").iterdir())
+    # 4 people x 3 images: 24 ordered test pairs, 3 batches of 8
+    shapes = {read_image(str(g)).shape for g in grids}
+    check("epoch-1 weights" in out and len(grids) == 24 // BATCH
+          and shapes == {(BATCH * 256, (2 + 2 * NUM_STACKS) * 256, 3)},
+          f"cli.test stacked grids {len(grids)} {shapes}")
+    emit({"phase": "cli_recipe", "step": "test", "seconds": secs,
+          "grids": len(grids)})
+    out, secs = _cli(cli_evaluate.main, flags + stacked + [
+        "--resume", "1", "--max_batches", "2"])
+    res = json.loads(out.strip().splitlines()[-1])
+    check(res["num_batches"] == 2 and all(math.isfinite(res[k]) for k in (
+        "value", "l1", "psnr", "feat_l2", "feat_l1", "feat_nn")),
+        f"cli.evaluate {res}")
+    emit({"phase": "cli_recipe", "step": "evaluate", "seconds": secs,
+          "result": res})
+    tmp.cleanup()
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                 "on one CUDA card (see the module's notes).")
@@ -1402,19 +1746,30 @@ def main(argv=None) -> int:
     cli_launches = phase_cli_h36m(smi)
     phase_fold_h36m()
     phase_pallas_h36m()
+    # this slice's paths; each sums its own launches
+    new_paths = [phase_recipe(smi), phase_stacked(smi)]
+    phase_unet(smi)
+    new_paths.append(phase_cli_recipe(smi))
+
+    def new(name):
+        return sum(p[name] for p in new_paths)
 
     tpu = "pose_transfer_tpu/ops/"
     rows = (
         ("fold_place",
          serve_launches["fold_place"] + train_launches["fold_place"]
-         + cli_launches["fold_place"], tpu + "warp_fused.py:189", []),
+         + cli_launches["fold_place"] + new("fold_place"),
+         tpu + "warp_fused.py:189", []),
         ("fold_route", train_launches["fold_route"]
-         + cli_launches["fold_route"], tpu + "warp_fused.py:380", []),
+         + cli_launches["fold_route"] + new("fold_route"),
+         tpu + "warp_fused.py:380", []),
         # the forward's two passes (pass 1 :223, pass 2 :243), fused
-        ("warp_fold", pallas_serve["warp_fold"] + pallas_train["warp_fold"],
+        ("warp_fold", pallas_serve["warp_fold"] + pallas_train["warp_fold"]
+         + new("warp_fold"),
          tpu + "warp_pallas.py:223", [tpu + "warp_pallas.py:243"]),
         # the backward's two transposed passes (:288, :307), fused
-        ("warp_fold_bwd", pallas_train["warp_fold_bwd"],
+        ("warp_fold_bwd", pallas_train["warp_fold_bwd"]
+         + new("warp_fold_bwd"),
          tpu + "warp_pallas.py:288", [tpu + "warp_pallas.py:307"]),
         ("fold_place_stream", stream_launches,
          tpu + "warp_fused.py:300", []),

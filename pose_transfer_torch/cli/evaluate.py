@@ -2,8 +2,9 @@
 the test split.
 
 Counterpart of ``pose_transfer_tpu/cli/evaluate.py``: the latest
-checkpoint's generator runs over the test split and one JSON line reports
-mean SSIM (``value``), L1, PSNR (of the [0, 1] remap, peak 1.0) and, unless
+checkpoint's generator (the stacked one's last stage) runs over the test
+split and one JSON line reports mean SSIM (``value``), L1, PSNR (of the
+[0, 1] remap, peak 1.0) and, unless
 ``--feat_layer none``, the mean L2 and L1 between the VGG19 features of
 output and target and ``feat_nn`` (``ops.nn_loss`` over them, area 5).
 The VGG weights come from ``--vgg_weights``, else the port's seeded random
@@ -67,6 +68,8 @@ def evaluate(opt, max_batches: int | None = None,
         batch = collate([dataset[b * config.batch_size + i]
                          for i in range(config.batch_size)])
         out, prepared = eval_step(batch)
+        if config.gen_type == "stacked":
+            out = out[-1]       # the metrics read the last stage
         out32 = out.float()
         tgt32 = prepared["target"].float()
         with torch.inference_mode():

@@ -10,6 +10,12 @@ every ``checkpoint_ratio`` epochs, written in the background; ``--resume``
 restarts at the latest checkpoint's epoch and seeks the train stream past
 the batches the earlier epochs drew.
 
+With ``--gen_type stacked`` and no ``--generator_checkpoint``, the shared
+generator warm-starts from the latest ``gen_*.pt`` of the deformable run
+``<exp_root>/full_<dataset>/models`` where there is one, and its grids
+show every stage. ``--content_loss_layer`` reads ``--vgg_weights`` (a
+torch VGG19 state_dict) where given, else seeded random filters.
+
 The losses stay on the device as running sums and are fetched only when
 the loss line is printed. ``--profile_steps N`` traces N steps from the
 second one with ``torch.profiler`` into ``<saveDir>/trace``.
@@ -29,13 +35,12 @@ import numpy as np
 import torch
 
 from ..data.dataset import PoseTransferDataset
-from ..data.device import make_batch_preparer
 from ..data.loader import sample_stream
 from ..train import checkpoint
-from ..train.engine import (create_state, make_eval_step, make_train_step,
-                            resolve_device)
+from ..train.engine import (batch_preparer, create_state, make_eval_step,
+                            make_train_step, resolve_device)
 from ..utils.summary import count_params
-from ..utils.visualize import display, save_image
+from ..utils.visualize import display, display_stacked, save_image
 from .opts import Opts, config_from_opt
 
 
@@ -65,7 +70,11 @@ def main(argv=None):
     dataset_train = PoseTransferDataset(vars(opt), "train")
     dataset_test = PoseTransferDataset(vars(opt), "test")
 
-    state = create_state(config, seed=opt.seed, device=device)
+    vgg = None
+    if config.content_loss_layer != "none" and opt.vgg_weights:
+        from ..models.vgg import load_torch_vgg19_features
+        vgg = load_torch_vgg19_features(opt.vgg_weights, device)
+    state = create_state(config, seed=opt.seed, device=device, vgg=vgg)
     print("---------- Networks initialized -------------")
     print("Generator parameters: %d" % count_params(state.gen))
     print("Discriminator parameters: %d" % count_params(state.disc))
@@ -74,6 +83,8 @@ def main(argv=None):
         checkpoint.load_params(opt.generator_checkpoint, state.gen)
     if opt.discriminator_checkpoint:
         checkpoint.load_params(opt.discriminator_checkpoint, state.disc)
+    if config.gen_type == "stacked" and not opt.generator_checkpoint:
+        _warm_start_stacked(opt, state)
 
     start_epoch = 1
     if opt.resume == 1:
@@ -106,13 +117,23 @@ def main(argv=None):
         checkpoint.wait_for_saves()
 
 
+def _warm_start_stacked(opt, state) -> None:
+    """Best effort, as the JAX package's CLI: the stacked generator's shared
+    generator from the deformable run ``full_<dataset>``'s latest
+    checkpoint (the reference requires that run)."""
+    warm_dir = os.path.join(opt.exp_root, f"full_{opt.dataset}", "models")
+    warm = checkpoint.get_model_list(warm_dir, "gen")
+    if warm:
+        checkpoint.load_params(warm, state.gen.generator)
+        print(f"Warm-started stacked generator from {warm}")
+    else:
+        print(f"No pretrained generator under {warm_dir}; "
+              "training stacked generator from scratch")
+
+
 def _train_epochs(opt, config, state, train_step, eval_step, stream_train,
                   stream_test, metrics_log, start_epoch):
-    prepare = make_batch_preparer(
-        image_size=config.image_size, pose_dim=config.pose_dim,
-        device=next(state.gen.parameters()).device,
-        use_input_pose=config.use_input_pose, warp_skip=config.warp_skip,
-        dtype=config.compute_dtype)
+    prepare = batch_preparer(config, next(state.gen.parameters()).device)
     profile_remaining = opt.profile_steps
     profiler = None
     for epoch in range(start_epoch, opt.number_of_epochs + 1):
@@ -192,6 +213,17 @@ def _stop_profiler(prof, save_dir: str) -> None:
     print("Wrote profiler trace to", trace_dir)
 
 
+def sample_grid(config, prepared: dict, out) -> np.ndarray:
+    """A batch's grid: ``display``, or for the stacked generator
+    ``display_stacked`` over its (S, N, H, W, 3) stages."""
+    if config.gen_type != "stacked":
+        return display(prepared["input"], prepared["target"], out,
+                       config.use_input_pose, config.pose_dim)
+    return display_stacked(prepared["input"], prepared["interpol_pose"],
+                           prepared["target"], out, config.num_stacks,
+                           config.use_input_pose, config.pose_dim)
+
+
 def _save_samples(opt, config, prepare, gen_batch, out, eval_step,
                   stream_test, epoch, it):
     """Train and test sample grids; ``out`` is the train step's generated
@@ -200,12 +232,10 @@ def _save_samples(opt, config, prepare, gen_batch, out, eval_step,
     with torch.no_grad():
         prepared = prepare(gen_batch)
     save_image(os.path.join(opt.output_dir, "train", title),
-               display(prepared["input"], prepared["target"], out,
-                       config.use_input_pose, config.pose_dim))
+               sample_grid(config, prepared, out))
     out_t, prepared_t = eval_step(next(stream_test))
     save_image(os.path.join(opt.output_dir, "test", title),
-               display(prepared_t["input"], prepared_t["target"], out_t,
-                       config.use_input_pose, config.pose_dim))
+               sample_grid(config, prepared_t, out_t))
 
 
 if __name__ == "__main__":

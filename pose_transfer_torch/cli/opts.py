@@ -8,11 +8,8 @@ the dataset's image size and file paths, the ``opt.txt`` dump) and
 
 Flags whose paths are not ported raise ``NotImplementedError`` naming
 their ``ROADMAP.md`` item rather than run something else:
-``--warp_backend exact`` (§A item 8), ``--gen_type stacked|unet`` and
-``--weight_init gaussian`` (§A item 7), a training
-``--content_loss_layer`` other than ``none`` (§A item 6, through
-``train.engine``) and ``--num_devices`` above 1 (§A item 10); 0 and 1 run
-on one device.
+``--warp_backend exact`` (§A item 8) and ``--num_devices`` above 1 (§A
+item 10); 0 and 1 run on one device.
 """
 
 from __future__ import annotations
@@ -74,8 +71,7 @@ class Opts:
         p.add_argument("--gen_type", default="baseline",
                        choices=["baseline", "stacked", "unet"],
                        help="baseline/stacked as the reference; 'unet' = "
-                            "the baseline tree's plain single-encoder U-Net "
-                            "(only 'baseline' is ported)")
+                            "the baseline tree's plain single-encoder U-Net")
         p.add_argument("--generated_images_dir",
                        default="output/generated_images")
         p.add_argument("--load_generated_images", default=0, type=int)
@@ -126,7 +122,7 @@ class Opts:
         p.add_argument("--weight_init", default="xavier",
                        choices=["xavier", "gaussian"],
                        help="xavier = glorot uniform; gaussian = N(0, 0.02) "
-                            "conv kernels (not ported)")
+                            "conv kernels")
 
         # the port's addition
         p.add_argument("--device", default="cuda",
@@ -202,14 +198,6 @@ def config_from_opt(opt):
         raise NotImplementedError(
             "--warp_backend exact: the gather-bilinear warp is not ported "
             "(ROADMAP.md §A item 8)")
-    if opt.gen_type != "baseline":
-        raise NotImplementedError(
-            f"--gen_type {opt.gen_type}: the stacked and U-Net generators "
-            "are not ported (ROADMAP.md §A item 7)")
-    if opt.weight_init != "xavier":
-        raise NotImplementedError(
-            f"--weight_init {opt.weight_init}: only the Glorot (xavier) "
-            "init is ported (ROADMAP.md §A item 7)")
     if opt.num_devices > 1:
         raise NotImplementedError(
             f"--num_devices {opt.num_devices}: data-parallel runs are not "

@@ -3,7 +3,8 @@
 Counterpart of ``pose_transfer_tpu/cli/test.py``: the generator of the
 latest checkpoint (the generator alone: a missing disc file is no error)
 runs over the test split in order, one ``images_batch_{b:05d}.png`` grid
-per full batch in ``generated_images_dir``.
+per full batch in ``generated_images_dir`` (the stacked generator's with
+every stage).
 
 Run: ``python -m pose_transfer_torch.cli.test --expID ... --resume 1
 [--device cpu]``
@@ -17,7 +18,8 @@ import os
 from ..data.dataset import PoseTransferDataset, collate
 from ..train import checkpoint
 from ..train.engine import create_state, make_eval_step, resolve_device
-from ..utils.visualize import display, save_image
+from ..utils.visualize import save_image
+from .main import sample_grid
 from .opts import Opts, config_from_opt
 
 
@@ -49,10 +51,9 @@ def main(argv=None):
         batch = collate([dataset[b * config.batch_size + i]
                          for i in range(config.batch_size)])
         out, prepared = eval_step(batch)
-        images = display(prepared["input"], prepared["target"], out,
-                         config.use_input_pose, config.pose_dim)
         save_image(os.path.join(opt.generated_images_dir,
-                                f"images_batch_{b:05d}.png"), images)
+                                f"images_batch_{b:05d}.png"),
+                   sample_grid(config, prepared, out))
     print(f"Wrote {num_batches} grids to {opt.generated_images_dir}")
 
 

@@ -1,8 +1,12 @@
-"""Pose geometry on tensors: keypoints → Gaussian heatmaps, image scaling,
-and the packed-input channel contract.
+"""Pose geometry on tensors: keypoints → Gaussian heatmaps, the stacked
+generator's pose interpolation, image scaling and the packed-input channel
+contract.
 
-Counterpart of ``pose_transfer_tpu/core/pose.py`` (the serving subset).
-Heatmaps are NHWC (..., H, W, K), as in the JAX package.
+Counterpart of ``pose_transfer_tpu/core/pose.py``. Heatmaps are NHWC
+(..., H, W, K), as in the JAX package. Its ``map_to_cord`` (the heatmap
+decode) is ``utils.visualize.map_to_cord`` here, in numpy: the grids are
+its one user. The host data path interpolates with the numpy twin
+``data.annotations.interpolate_keypoints_host``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,45 @@ def cords_to_map(cords: torch.Tensor, img_size: tuple[int, int],
     return torch.where(missing[..., None, None, :],
                        torch.zeros((), dtype=maps.dtype, device=maps.device),
                        maps)
+
+
+def compute_interpol_pose(inp_pose: torch.Tensor, tg_pose: torch.Tensor,
+                          index: int, num_stacks: int,
+                          pose_dim: int) -> torch.Tensor:
+    """Linear keypoint interpolation for the stacked generator, (..., K, 2)
+    float32.
+
+    For pose_dim 16 a plain lerp. For pose_dim 18 a joint missing on one
+    side appears or vanishes at the halfway stack: missing in the input
+    and present in the target, it is MISSING for ``index <= num_stacks //
+    2`` and the target after; present in the input and missing in the
+    target, the input, then MISSING; missing on both sides, MISSING.
+    """
+    inp_pose = torch.as_tensor(inp_pose).to(torch.float32)
+    tg_pose = torch.as_tensor(tg_pose).to(torch.float32)
+    frac = index / num_stacks
+    lerp = inp_pose + (tg_pose - inp_pose) * frac
+    if pose_dim == 16:
+        return lerp
+    inp_missing = (inp_pose == MISSING_VALUE).any(dim=-1, keepdim=True)
+    tg_missing = (tg_pose == MISSING_VALUE).any(dim=-1, keepdim=True)
+    missing = torch.full_like(lerp, MISSING_VALUE)
+    if index <= num_stacks // 2:
+        case_inp, case_tg = missing, inp_pose
+    else:
+        case_inp, case_tg = tg_pose, missing
+    out = torch.where(inp_missing & ~tg_missing, case_inp, lerp)
+    out = torch.where(tg_missing & ~inp_missing, case_tg, out)
+    return torch.where(inp_missing & tg_missing, missing, out)
+
+
+def interpol_pose_sequence(inp_pose: torch.Tensor, tg_pose: torch.Tensor,
+                           num_stacks: int, pose_dim: int) -> torch.Tensor:
+    """All ``num_stacks`` interpolated poses, the last one the target:
+    (num_stacks, ..., K, 2)."""
+    return torch.stack([
+        compute_interpol_pose(inp_pose, tg_pose, i, num_stacks, pose_dim)
+        for i in range(1, num_stacks + 1)])
 
 
 def preprocess_image(image: torch.Tensor) -> torch.Tensor:

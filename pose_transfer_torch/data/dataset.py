@@ -1,10 +1,12 @@
 """The pose-transfer pair dataset (host side) and compact-sample helpers.
 
-Counterpart of ``PoseTransferDataset`` (its baseline branch: the compact
-sample and the per-pair warp-fit cache), ``collate`` and ``warp_fit`` in
-``pose_transfer_tpu/data/dataset.py``. A sample is compact: uint8 images,
-(K, 2) keypoints, (T, 8) affine fits and (T, 4, 2) mask polygons;
-heatmaps and part masks are rasterized on the device
+Counterpart of ``PoseTransferDataset`` (the compact sample of each
+generator type and the per-pair fit cache), ``collate``, ``warp_fit`` and
+``interpol_chain`` in ``pose_transfer_tpu/data/dataset.py``. A sample is
+compact: uint8 images, (K, 2) keypoints and, for the deformable generator,
+(T, 8) affine fits and (T, 4, 2) mask polygons; for the stacked one the
+interpolated keypoints and the chain's fits and polygons; for the U-Net
+nothing more. Heatmaps and part masks are rasterized on the device
 (``data.device.make_batch_preparer``).
 
 Kept from the reference, as the JAX package keeps them:
@@ -12,7 +14,11 @@ Kept from the reference, as the JAX package keeps them:
   ones; in check mode the ``-check`` files, for both;
 - train and test annotations are merged into one name-indexed table;
 - a *missing* image file becomes a black image. A file that exists but
-  does not decode raises (``utils.image_io.read_image``).
+  does not decode raises (``utils.image_io.read_image``);
+- the stacked chain's poses go through the closed form of the
+  reference's heatmap round trip (``annotations.project_keypoints``), and
+  its fit list has ``num_stacks + 1`` entries, the first warping the input
+  pose onto itself; the stacked generator reads the first ``num_stacks``.
 """
 
 from __future__ import annotations
@@ -40,12 +46,11 @@ class PoseTransferDataset:
     def __init__(self, opt, split: str, cache_warps: bool = True):
         if not isinstance(opt, dict):
             opt = vars(opt)
-        if opt["gen_type"] != "baseline":
-            raise NotImplementedError(
-                f"gen_type={opt['gen_type']!r}: the stacked and U-Net "
-                "generators are not ported (ROADMAP.md §A item 7)")
         self.split = split
         self.gen_type = opt["gen_type"]
+        if self.gen_type not in ("baseline", "stacked", "unet"):
+            raise ValueError(f"invalid gen_type {self.gen_type!r}")
+        self.num_stacks = opt["num_stacks"]
         self.pose_dim = opt["pose_dim"]
         self.image_size = tuple(opt["image_size"])
         self.use_input_pose = bool(opt["use_input_pose"])
@@ -102,7 +107,8 @@ class PoseTransferDataset:
     # ------------------------------------------------------------- samples
 
     def item_compact(self, index: int) -> dict:
-        """Image bytes, keypoints and fits; no rasters."""
+        """Image bytes, keypoints and the generator type's fits; no
+        rasters."""
         pair = self.pair(index)
         kp_from = self.keypoints(pair["from"])
         kp_to = self.keypoints(pair["to"])
@@ -112,15 +118,25 @@ class PoseTransferDataset:
             "kp_from": kp_from.astype(np.float32),
             "kp_to": kp_to.astype(np.float32),
         }
+        if self.gen_type == "unet":
+            return out          # the packed input only
         cached = None if self._warp_cache is None \
             else self._warp_cache.get(index)
         if cached is None:
-            cached = warp_fit(kp_from, kp_to, self.pose_dim, self.image_size,
-                              self.warp_skip)
+            if self.gen_type == "stacked":
+                cached = interpol_chain(kp_from, kp_to, self.pose_dim,
+                                        self.image_size, self.warp_skip,
+                                        self.num_stacks)
+            else:
+                cached = warp_fit(kp_from, kp_to, self.pose_dim,
+                                  self.image_size, self.warp_skip)
             if self._warp_cache is not None:
                 self._warp_cache[index] = cached
-        warps, polys, kinds = cached
-        out.update(warps=warps, mask_polys=polys, mask_kinds=kinds)
+        if self.gen_type == "stacked":
+            out.update(zip(("interpol_kp", "interpol_warps",
+                            "interpol_polys", "interpol_kinds"), cached))
+        else:
+            out.update(zip(("warps", "mask_polys", "mask_kinds"), cached))
         return out
 
     def __getitem__(self, index: int) -> dict:
@@ -144,3 +160,23 @@ def warp_fit(kp1: np.ndarray, kp2: np.ndarray, pose_dim: int,
         kinds = np.zeros((1,), np.int32)  # kind 0 = all-ones
     return (warps.astype(np.float32), polys.astype(np.float32),
             kinds.astype(np.int32))
+
+
+def interpol_chain(kp_from: np.ndarray, kp_to: np.ndarray, pose_dim: int,
+                   image_size: tuple[int, int], warp_skip: str,
+                   num_stacks: int):
+    """The stacked generator's (interpol_kp (S, K, 2), warps (S+1, T, 8),
+    polys (S+1, T, 4, 2), kinds (S+1, T)) for one pair: the ``num_stacks``
+    interpolated poses of the projected keypoints, and the fits chaining
+    pose i-1 → i over [input] + their projections."""
+    kp_from_p = ann.project_keypoints(kp_from, image_size)
+    kp_to_p = ann.project_keypoints(kp_to, image_size)
+    interpol = [ann.interpolate_keypoints_host(kp_from_p, kp_to_p, i,
+                                               num_stacks, pose_dim)
+                for i in range(1, num_stacks + 1)]
+    chain = [kp_from_p] + [ann.project_keypoints(k, image_size)
+                           for k in interpol]
+    fits = [warp_fit(prev, kp, pose_dim, image_size, warp_skip)
+            for prev, kp in zip(chain[:1] + chain[:-1], chain)]
+    warps, polys, kinds = (np.stack(f) for f in zip(*fits))
+    return np.stack(interpol).astype(np.float32), warps, polys, kinds

@@ -24,6 +24,7 @@ from ..core import transforms_host as th
 from ..core.skeletons import LABELS, LABELS_PAF
 from ..utils.image_io import write_png
 from .annotations import dump_keypoints, write_annotations
+from .dataset import interpol_chain
 from .pairs import build_pairs, write_csv
 
 # canonical upright template, (x, y) in a unit box, per schema
@@ -90,8 +91,11 @@ def skeleton_image(kp: np.ndarray, img_size: tuple[int, int],
 
 def synthetic_compact_batch(rng: np.random.Generator, batch_size: int,
                             img_size: tuple[int, int], pose_dim: int,
-                            warp_skip: str = "mask") -> dict:
-    """In-memory compact batch for the baseline generator."""
+                            warp_skip: str = "mask",
+                            gen_type: str = "baseline",
+                            num_stacks: int = 4) -> dict:
+    """In-memory compact batch for ``gen_type`` ('baseline', 'stacked' or
+    'unet'); the draws of the JAX package's, key for key."""
     samples = []
     for _ in range(batch_size):
         kp_from = random_skeleton(rng, img_size, pose_dim)
@@ -102,7 +106,13 @@ def synthetic_compact_batch(rng: np.random.Generator, batch_size: int,
             "kp_from": kp_from.astype(np.float32),
             "kp_to": kp_to.astype(np.float32),
         }
-        if warp_skip == "mask":
+        if gen_type == "stacked":
+            s.update(zip(("interpol_kp", "interpol_warps", "interpol_polys",
+                          "interpol_kinds"),
+                         interpol_chain(kp_from, kp_to, pose_dim, img_size,
+                                        warp_skip, num_stacks)))
+        elif warp_skip == "mask":
+            # the JAX package's batch carries the fits for the U-Net too
             s["warps"] = th.affine_transforms(
                 kp_from, kp_to, pose_dim).astype(np.float32)
             polys, kinds = th.pose_mask_polys(kp_to, img_size, pose_dim)

@@ -1,7 +1,9 @@
 """Carry the JAX package's weights into the port.
 
 ``generator_state_dict_from_flax`` and ``discriminator_state_dict_from_flax``
-take the params of ``pose_transfer_tpu.models.DeformableGenerator`` /
+take the params of ``pose_transfer_tpu.models.DeformableGenerator``,
+``StackedGenerator`` (the same keys under ``generator.``, the reference's
+prefix), ``UNetGenerator`` (``encoder.*``, ``decoder.*``) or
 ``Discriminator`` (full width or check mode) as nested dicts of numpy
 arrays (``{"params": {...}}`` or the inner dict) and return the port's
 state_dicts, under the reference PyTorch names; ``vgg_state_dict_from_flax``
@@ -67,12 +69,20 @@ def _decoder(p: dict, prefix: str, sd: dict) -> None:
 
 
 def generator_state_dict_from_flax(params: dict) -> dict:
-    """Flax DeformableGenerator params → the port's generator state_dict."""
+    """Flax DeformableGenerator, StackedGenerator or UNetGenerator params →
+    the port's generator state_dict (the module is told by its trees)."""
     p = params.get("params", params)
     sd: dict = {}
-    _encoder(p["encoder_app"], "encoder_app", sd)
-    _encoder(p["encoder_pose"], "encoder_pose", sd)
-    _decoder(p["decoder"], "decoder", sd)
+    if "encoder" in p:                                  # U-Net
+        _encoder(p["encoder"], "encoder", sd)
+        _decoder(p["decoder"], "decoder", sd)
+        return sd
+    prefix = ""
+    if "generator" in p:                                # stacked
+        p, prefix = p["generator"], "generator."
+    _encoder(p["encoder_app"], prefix + "encoder_app", sd)
+    _encoder(p["encoder_pose"], prefix + "encoder_pose", sd)
+    _decoder(p["decoder"], prefix + "decoder", sd)
     return sd
 
 

@@ -1,8 +1,9 @@
-"""The deformable U-Net generator and the patch discriminator (PyTorch
-modules).
+"""The generators (deformable, stacked, plain U-Net) and the patch
+discriminator (PyTorch modules).
 
-Counterpart of ``Block``, ``Encoder``, ``Decoder``, ``DeformableGenerator``
-and ``Discriminator`` in ``pose_transfer_tpu/models/networks.py``.
+Counterpart of ``Block``, ``Encoder``, ``Decoder``, ``DeformableGenerator``,
+``StackedGenerator``, ``UNetGenerator``, ``Discriminator`` and
+``gaussian_weights_init`` in ``pose_transfer_tpu/models/networks.py``.
 
 Module attribute names reproduce the reference PyTorch state_dict names
 (the keys ``pose_transfer_tpu/models/import_torch.py`` maps), so a
@@ -15,6 +16,8 @@ reference checkpoint loads with ``load_state_dict`` as it is:
   decoder.net.{n}.{weight,bias}               final k3 conv
   (discriminator) net.0.{weight,bias}         k4s2 VALID conv
   (discriminator) net.{i}.net.{1,2}.*         Block conv / norm (i ≥ 1)
+The stacked generator holds the same keys under ``generator.`` (the
+reference's prefix); the U-Net has ``encoder.*`` and ``decoder.*``.
 
 Parameters are float32; ``dtype`` is the compute dtype (convolutions cast
 their weights to it, the norm computes in f32 and rounds back), as flax's
@@ -152,19 +155,21 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """U-Net decoder over skip-concats: up Blocks (dropout on the first 3),
-    then ReLU → k3 conv → tanh. Every skip is [warped appearance ‖ pose]:
-    twice the encoder's width."""
+    then ReLU → k3 conv → tanh. A skip is ``num_skips`` encoder outputs
+    wide: 2 in the deformable generator ([warped appearance ‖ pose]), 1 in
+    the U-Net."""
 
     def __init__(self, nfilters_dec: Sequence[int],
-                 nfilters_enc: Sequence[int], device=None):
+                 nfilters_enc: Sequence[int], num_skips: int = 2,
+                 device=None):
         super().__init__()
         n = len(nfilters_dec)
         layers = []
-        in_ch = 2 * nfilters_enc[-1]
+        in_ch = num_skips * nfilters_enc[-1]
         for i in range(n - 1):
             layers.append(Block(in_ch, nfilters_dec[i], down=False,
                                 dropout=(i < 3), device=device))
-            in_ch = nfilters_dec[i] + 2 * nfilters_enc[-(i + 2)]
+            in_ch = nfilters_dec[i] + num_skips * nfilters_enc[-(i + 2)]
         layers.append(nn.ReLU())
         layers.append(Conv2d(in_ch, nfilters_dec[-1], 3, 1, 1,
                              device=device))
@@ -256,6 +261,69 @@ class DeformableGenerator(nn.Module):
         return self.decoder(skips).permute(0, 2, 3, 1)
 
 
+class UNetGenerator(nn.Module):
+    """The plain single-encoder U-Net (the reference's baseline tree): the
+    packed input through one ``Encoder``, its outputs as the skips, no
+    warping. ``forward(inp)``: (N, H, W, 3+2K) → (N, H, W, 3)."""
+
+    def __init__(self, in_ch: int, nfilters_enc: Sequence[int],
+                 nfilters_dec: Sequence[int],
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = Encoder(in_ch, nfilters_enc, device=device)
+        self.decoder = Decoder(nfilters_dec, nfilters_enc, num_skips=1,
+                               device=device)
+
+    def forward(self, inp):
+        x = inp.to(self.dtype).contiguous().permute(0, 3, 1, 2)
+        return self.decoder(self.encoder(x)).permute(0, 2, 3, 1)
+
+
+class StackedGenerator(nn.Module):
+    """One shared ``DeformableGenerator`` (``generator``) applied
+    ``num_stacks`` times along the interpolated-pose chain.
+
+    ``forward(inp, target_pose, target_warps, target_masks)``: inp (N, H,
+    W, 3+2K) packed input, target_pose (N, H, W, S·K) the stages' target
+    heatmaps, target_warps (N, S+1, T, 8), target_masks (N, S+1, T, H, W)
+    or None → the list of the S stages' (N, H, W, 3) images. Stage 0 takes
+    [source image ‖ source pose ‖ stage 0's pose]; stage i > 0 [stage
+    i-1's image ‖ stage i-1's pose ‖ stage i's pose], with fits i and masks
+    i. Keyword arguments are the ``DeformableGenerator``'s.
+    """
+
+    def __init__(self, pose_dim: int, image_size: tuple[int, int],
+                 nfilters_enc: Sequence[int], nfilters_dec: Sequence[int],
+                 num_stacks: int = 4, **kwargs):
+        super().__init__()
+        self.num_stacks = num_stacks
+        self.generator = DeformableGenerator(pose_dim, image_size,
+                                             nfilters_enc, nfilters_dec,
+                                             **kwargs)
+
+    def forward(self, inp, target_pose, target_warps, target_masks):
+        gen = self.generator
+        k = gen.pose_dim
+        img, pose, _ = pose_ops.get_imgpose(inp, gen.use_input_pose, k)
+        outputs = []
+        for i in range(self.num_stacks):
+            stage_tg = target_pose[..., i * k:(i + 1) * k]
+            parts = [img]
+            if gen.use_input_pose:
+                parts.append(pose)
+            parts.append(stage_tg)
+            # a stage's slices are strided; the fold takes its full-size
+            # masks as they come (resize_bilinear returns them unchanged)
+            masks = None if target_masks is None \
+                else target_masks[:, i].contiguous()
+            img = gen(torch.cat([p.to(gen.dtype) for p in parts], dim=-1),
+                      target_warps[:, i].contiguous(), masks)
+            pose = stage_tg
+            outputs.append(img)
+        return outputs
+
+
 class Discriminator(nn.Module):
     """Patch discriminator → (N, patches) probabilities.
 
@@ -295,3 +363,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, VolumeInstanceNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+
+
+def gaussian_weights_init(module: nn.Module,
+                          generator: torch.Generator) -> None:
+    """Redraw every convolution and transposed-convolution weight from
+    N(0, 0.02) (``weight_init='gaussian'``), in module order from
+    ``generator``; biases and the norms' affines stay as they are."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)

@@ -101,14 +101,18 @@ def load_torch_vgg19_features(path: str, device="cpu") -> VGG19Features:
 
 
 def preprocess_for_vgg(x: torch.Tensor, mode: str = "correct") -> torch.Tensor:
-    """ImageNet normalization of [-1, 1] NHWC images.
+    """ImageNet normalization of [-1, 1] NHWC images → float32.
 
     mode='correct': [0,1]-rescale then per-channel mean/std.
     mode='reference': the reference's reshape quirk — mean/std indexed by
     NCHW flat position mod 3, input left in [-1, 1].
+
+    The constants are float32 tensors, so a bf16 input is rescaled in bf16
+    and normalized in float32, as in the JAX package (whose numpy float32
+    constants promote a bf16 array).
     """
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=x.device)
     if mode == "correct":
         return ((x + 1.0) * 0.5 - mean) / std
     if mode != "reference":
@@ -122,8 +126,9 @@ def preprocess_for_vgg(x: torch.Tensor, mode: str = "correct") -> torch.Tensor:
 
 def extract_features(vgg: VGG19Features, x: torch.Tensor, layer_index: int,
                      preprocess_mode: str = "correct") -> torch.Tensor:
-    """``features[0..layer_index]`` on NHWC [-1, 1] images → NHWC, in
-    ``x``'s dtype."""
+    """``features[0..layer_index]`` on NHWC [-1, 1] images → NHWC float32
+    (``preprocess_for_vgg`` promotes, and the filters are cast to its
+    output's dtype, as JAX's ``extract_features`` casts them)."""
     y = preprocess_for_vgg(x, preprocess_mode).permute(0, 3, 1, 2)
     for layer in vgg.features[:layer_index + 1]:
         if isinstance(layer, nn.Conv2d):

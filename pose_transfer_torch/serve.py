@@ -13,9 +13,10 @@ serving comes with multi-GPU support):
 
 Request contract: a source image (uint8 HWC at the config's image size), its
 keypoints and the target keypoints, (K, 2) (y, x) with MISSING_VALUE=-1. The
-server runs the host-side estimation (``data.dataset.warp_fit``) and the
-eval step (heatmap/mask rasterization and the generator forward on the
-device).
+server runs the host-side estimation (``data.dataset.warp_fit`` for the
+deformable generator, ``interpol_chain`` for the stacked one, none for the
+U-Net) and the eval step (heatmap/mask rasterization and the generator
+forward on the device). The stacked server answers with the last stage.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from .data.dataset import collate, warp_fit
+from .data.dataset import collate, interpol_chain, warp_fit
 from .train.engine import make_eval_step
 
 
@@ -36,7 +37,7 @@ class PoseTransferServer:
     """Persistent batched pose-transfer generator.
 
     Args:
-      config: ``GANConfig`` (image_size/pose_dim/batch_size/...).
+      config: ``GANConfig`` (image_size/pose_dim/batch_size/gen_type/...).
       gen: the generator module (``build_models``).
       max_wait_ms: admission window for partial batches.
       queue_depth: max queued requests before ``submit`` blocks.
@@ -72,9 +73,9 @@ class PoseTransferServer:
 
     def prepare_request(self, image: np.ndarray, kp_from: np.ndarray,
                         kp_to: np.ndarray) -> dict:
-        """Host-side sample assembly: per-pair affine estimation, compact
-        layout. No ``image_to``: the preparer fills the blank target on the
-        device."""
+        """Host-side sample assembly: the generator type's per-pair fits,
+        compact layout. No ``image_to``: the preparer fills the blank target
+        on the device."""
         cfg = self._config
         image = np.ascontiguousarray(image, np.uint8)
         if image.shape != (*cfg.image_size, 3):
@@ -89,10 +90,19 @@ class PoseTransferServer:
             if kp.shape != (cfg.pose_dim, 2):
                 raise ValueError(
                     f"{name} must be {(cfg.pose_dim, 2)}, got {kp.shape}")
-        warps, polys, kinds = warp_fit(
-            kp_from, kp_to, cfg.pose_dim, cfg.image_size, cfg.warp_skip)
-        return {"image_from": image, "kp_from": kp_from, "kp_to": kp_to,
-                "warps": warps, "mask_polys": polys, "mask_kinds": kinds}
+        sample = {"image_from": image, "kp_from": kp_from, "kp_to": kp_to}
+        if cfg.gen_type == "stacked":
+            sample.update(zip(
+                ("interpol_kp", "interpol_warps", "interpol_polys",
+                 "interpol_kinds"),
+                interpol_chain(kp_from, kp_to, cfg.pose_dim, cfg.image_size,
+                               cfg.warp_skip, cfg.num_stacks)))
+        elif cfg.gen_type == "baseline":
+            sample.update(zip(
+                ("warps", "mask_polys", "mask_kinds"),
+                warp_fit(kp_from, kp_to, cfg.pose_dim, cfg.image_size,
+                         cfg.warp_skip)))
+        return sample
 
     def submit(self, image: np.ndarray, kp_from: np.ndarray,
                kp_to: np.ndarray) -> Future:
@@ -147,6 +157,8 @@ class PoseTransferServer:
         # static-shape pad: repeat the last sample; padded outputs dropped
         samples = samples + [samples[-1]] * (bs - len(samples))
         out, _ = self._eval(collate(samples))
+        if self._config.gen_type == "stacked":
+            out = out[-1]       # (S, N, H, W, 3) stages → the last
         out = out[:len(items)]
         if self._output_dtype == "uint8":
             out = ((out.float().clamp(-1.0, 1.0) + 1.0) * 127.5) \

@@ -3,18 +3,22 @@ holds up under a stream of requests.
 
     python3 -m pose_transfer_torch.tools.profile_serve [--batch 8]
         [--warp_backend {matmul,pallas}] [--dataset {fasion,h36m}]
+        [--gen_type {baseline,stacked,unet}]
 
 Builds the full-width generator of the dataset (``fasion``: 256², pose_dim
 18, the 7-stage ladder; ``h36m``: 224², pose_dim 16, the 6-stage ladder;
 bf16, seeded random weights; ``--warp_backend pallas`` puts the fold
 stages the fused warp fold takes on it: 256² and 128² for fasion, none for
-h36m) and reports as JSON lines, each naming the backend and dataset:
+h36m; ``--gen_type`` the deformable generator, the stacked one of 4
+stages or the plain U-Net) and reports as JSON lines, each naming the
+backend, dataset and generator type:
 - the device time of one eval step on one prepared batch of synthetic
   requests (CUDA events, mean over 10 steps after warm-up) and its host
   wall time;
-- the device time by layer: batch preparation, the two encoders, the fold
-  plan, each fold instance (by resolution) and the decoder (CUDA events
-  around each, taken in separate steps);
+- the device time by layer: batch preparation, the encoders, the fold
+  plan, each fold instance (by resolution) and the decoder, summed over
+  the stacked generator's stages (CUDA events around each, taken in
+  separate steps);
 - a ``torch.profiler`` trace of three steps: device time summed by kernel
   category (convolution, GEMM — the fold's two-pass einsums —, the
   ``fold_place``, ``fold_route``, ``warp_fold`` and ``warp_fold_bwd``
@@ -51,11 +55,20 @@ REQUESTS = 384    # requests per serving load: tails from hundreds, not tens
 DATASETS = {"fasion": ((256, 256), 18), "h36m": ((224, 224), 16)}
 
 
-def config_for(dataset: str, batch: int, warp_backend: str) -> GANConfig:
-    """The full-width bf16 configuration of ``dataset``."""
+def config_for(dataset: str, batch: int, warp_backend: str,
+               gen_type: str = "baseline",
+               content_loss_layer: str = "none") -> GANConfig:
+    """The full-width bf16 configuration of ``dataset`` and ``gen_type``
+    (the stacked generator with the JAX default of 4 stages). With a
+    ``content_loss_layer`` the reference's full_fasion recipe: nn_loss of
+    area 5 over that layer's VGG19 features, weight 1.0."""
     size, pose_dim = DATASETS[dataset]
+    recipe = {} if content_loss_layer == "none" else dict(
+        content_loss_layer=content_loss_layer, nn_loss_area_size=5,
+        l1_penalty_weight=1.0)
     return GANConfig(image_size=size, pose_dim=pose_dim, batch_size=batch,
-                     compute_dtype=torch.bfloat16, warp_backend=warp_backend)
+                     compute_dtype=torch.bfloat16, warp_backend=warp_backend,
+                     gen_type=gen_type, **recipe)
 
 
 def requests(rng, n: int, cfg: GANConfig) -> list:
@@ -88,7 +101,8 @@ def _category(name: str) -> str:
 def _layer_ms(gen, step, batch, iters: int) -> dict:
     """Mean device ms per step of each layer, from CUDA events recorded
     around the encoders, the fold plan, every fold instance and the
-    decoder (wrapped for the duration of the measurement only)."""
+    decoder (wrapped for the duration of the measurement only; the stacked
+    generator's stages add up under one label each)."""
     from ..models import networks
 
     marks = []
@@ -108,8 +122,10 @@ def _layer_ms(gen, step, batch, iters: int) -> dict:
     networks.affine_transform_layer = timed(
         lambda a: f"fold_{a[0].shape[1]}x{a[0].shape[2]}", saved[0])
     networks.plan_folds = timed(lambda a: "fold_plan", saved[1])
-    mods = {"encoder_app": gen.encoder_app, "encoder_pose": gen.encoder_pose,
-            "decoder": gen.decoder}
+    core = getattr(gen, "generator", gen)        # the stacked one's shared
+    mods = {name: getattr(core, name) for name in (
+        "encoder_app", "encoder_pose", "encoder", "decoder")
+        if hasattr(core, name)}
     for name, mod in mods.items():
         mod.forward = timed(lambda a, n=name: n, mod.forward)
     try:
@@ -202,6 +218,8 @@ def main(argv=None) -> int:
     ap.add_argument("--warp_backend", choices=("matmul", "pallas"),
                     default="matmul")
     ap.add_argument("--dataset", choices=sorted(DATASETS), default="fasion")
+    ap.add_argument("--gen_type", choices=("baseline", "stacked", "unet"),
+                    default="baseline")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -210,9 +228,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = config_for(args.dataset, args.batch, args.warp_backend)
+    cfg = config_for(args.dataset, args.batch, args.warp_backend,
+                     args.gen_type)
     tag = {"batch": args.batch, "warp_backend": args.warp_backend,
-           "dataset": args.dataset, "card": smi}
+           "dataset": args.dataset, "gen_type": args.gen_type, "card": smi}
     gen = build_models(cfg, seed=0, device="cuda")
     step = make_eval_step(cfg, gen)
     with PoseTransferServer(cfg, gen) as srv:      # its request assembly

@@ -2,13 +2,18 @@
 
     python3 -m pose_transfer_torch.tools.profile_train [--batch 8 32]
         [--warp_backend {matmul,pallas}] [--dataset {fasion,h36m}]
+        [--gen_type {baseline,stacked,unet}]
+        [--content_loss_layer block1_conv2]
 
 For each batch size, builds the full-width training state of the dataset
 (``fasion``: 256², pose_dim 18; ``h36m``: 224², pose_dim 16, the 6-stage
 ladder; generator and discriminator, bf16, seeded random weights,
 ``create_state``; ``--warp_backend pallas`` puts the fold stages the fused
-warp fold takes on it) and the two-phase step (``make_train_step``), and
-reports as JSON lines, each naming the backend and dataset:
+warp fold takes on it; ``--gen_type`` the deformable, stacked (4 stages)
+or U-Net generator; ``--content_loss_layer`` the reference's full_fasion
+recipe, ``profile_serve.config_for``) and the two-phase step
+(``make_train_step``), and reports as JSON lines, each naming the
+backend, dataset, generator type and content layer:
 - the step: device ms (CUDA events around each step, mean over 5 steps after
   2 warm-up steps), host wall ms, train img/s from the wall time and from
   the device time, and peak device memory. Images per step are counted as
@@ -18,10 +23,11 @@ reports as JSON lines, each naming the backend and dataset:
   steps): batch preparation, the discriminator phase's generator forward
   and each of its fold instances, the discriminator forward, backward and
   Adam update, the generator phase's forward and its fold instances, the
-  discriminator forward in the generator phase, the generator backward with
+  discriminator forward in the generator phase, the reconstruction loss
+  (L1, or the VGG features and nn_loss), the generator backward with
   each fold instance's backward (the fold_route launch and the transposed
-  warps, or the warp_fold_bwd launch) split out, and the generator's Adam
-  update;
+  warps, or the warp_fold_bwd launch) and nn_loss's backward split out,
+  and the generator's Adam update;
 - a ``torch.profiler`` trace of two steps: device time by kernel category
   (``profile_serve._category``), the device's idle share within the traced
   span (``profile_serve._idle_share``) and the top kernels.
@@ -40,8 +46,10 @@ import torch
 
 from ..data.synthetic import synthetic_compact_batch
 from ..models import networks
+from ..ops import nn_loss as nn_loss_mod
 from ..ops import warp as warp_mod
 from ..ops import warp_fused, warp_pallas
+from ..train import engine
 from ..train.engine import GANConfig, create_state, make_train_step
 from .profile_serve import DATASETS, _category, _idle_share, config_for
 
@@ -54,7 +62,8 @@ def _batches(cfg: GANConfig, rng, count: int):
     compact batches, the disc draws stacked for training_ratio."""
     def draw():
         return synthetic_compact_batch(rng, cfg.batch_size, cfg.image_size,
-                                       cfg.pose_dim)
+                                       cfg.pose_dim, gen_type=cfg.gen_type,
+                                       num_stacks=cfg.num_stacks)
 
     def stack():
         draws = [draw() for _ in range(cfg.training_ratio)]
@@ -101,6 +110,10 @@ def _layer_ms(step, batches) -> dict:
         (warp_fused, "fold_route"): warp_fused.fold_route,
         (warp_pallas, "warp_fold_bwd"): warp_pallas.warp_fold_bwd,
         (torch.Tensor, "backward"): torch.Tensor.backward,
+        (engine, "reconstruction_loss"): engine.reconstruction_loss,
+        # the staticmethod itself, so that restoring it keeps it one
+        (nn_loss_mod.NNLoss, "backward"):
+            nn_loss_mod.NNLoss.__dict__["backward"],
     }
     networks.affine_transform_layer = timed(
         lambda a: f"fold_fwd_{res(a)} ({phase[0]})",
@@ -119,6 +132,11 @@ def _layer_ms(step, batches) -> dict:
         saved_mod[(warp_pallas, "warp_fold_bwd")])
     torch.Tensor.backward = timed(in_phase("backward"),
                                   saved_mod[(torch.Tensor, "backward")])
+    engine.reconstruction_loss = timed(
+        in_phase("reconstruction_loss"),
+        saved_mod[(engine, "reconstruction_loss")])
+    nn_loss_mod.NNLoss.backward = staticmethod(timed(
+        lambda a: "nn_loss_bwd (gen phase)", nn_loss_mod.NNLoss.backward))
     inst = {(step, "disc_phase"): set_phase("disc phase", step.disc_phase),
             (step, "gen_phase"): set_phase("gen phase", step.gen_phase)}
     inst[(step, "prepare")] = timed(in_phase("prepare"), step.prepare)
@@ -155,16 +173,20 @@ def _layer_ms(step, batches) -> dict:
     out: dict[str, float] = {}
     for label, s, e in marks:
         out[label] = out.get(label, 0.0) + s.elapsed_time(e) / len(batches)
-    fold_bwd = sum(v for k, v in out.items() if k.startswith("fold_bwd_"))
-    out["gen backward other than the fold (gen phase)"] = \
-        out.get("backward (gen phase)", 0.0) - fold_bwd
+    inside = sum(v for k, v in out.items()
+                 if k.startswith("fold_bwd_") or k.startswith("nn_loss_bwd"))
+    out["gen backward other than the fold and nn_loss (gen phase)"] = \
+        out.get("backward (gen phase)", 0.0) - inside
     return dict(sorted(out.items()))
 
 
 def profile(batch: int, smi: str, warp_backend: str = "matmul",
-            dataset: str = "fasion") -> None:
-    cfg = config_for(dataset, batch, warp_backend)
+            dataset: str = "fasion", gen_type: str = "baseline",
+            content_loss_layer: str = "none") -> None:
+    cfg = config_for(dataset, batch, warp_backend, gen_type,
+                     content_loss_layer)
     tag = {"batch": batch, "warp_backend": warp_backend, "dataset": dataset,
+           "gen_type": gen_type, "content_loss_layer": content_loss_layer,
            "card": smi}
     state = create_state(cfg, seed=0, device="cuda")
     step = make_train_step(cfg, state)
@@ -237,6 +259,11 @@ def main(argv=None) -> int:
     ap.add_argument("--warp_backend", choices=("matmul", "pallas"),
                     default="matmul")
     ap.add_argument("--dataset", choices=sorted(DATASETS), default="fasion")
+    ap.add_argument("--gen_type", choices=("baseline", "stacked", "unet"),
+                    default="baseline")
+    ap.add_argument("--content_loss_layer", default="none",
+                    help="a VGG19 layer (block1_conv2): the full_fasion "
+                         "recipe; none = L1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -245,7 +272,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     for batch in args.batch:
-        profile(batch, smi, args.warp_backend, args.dataset)
+        profile(batch, smi, args.warp_backend, args.dataset, args.gen_type,
+                args.content_loss_layer)
         torch.cuda.empty_cache()
     return 0
 

@@ -1,9 +1,11 @@
 """Model construction, the inference step and the two-phase GAN train step.
 
-Counterpart of ``GANConfig``, ``build_models``, ``disc_input``,
-``create_state``, ``make_optimizer``, ``make_train_step`` and
-``make_eval_step`` in ``pose_transfer_tpu/train/engine.py``, for the
-baseline deformable generator with L1 reconstruction. Steps run eagerly:
+Counterpart of ``GANConfig``, ``build_models``, ``gen_apply``,
+``disc_input``, ``create_state``, ``make_optimizer``,
+``reconstruction_loss``, ``make_train_step`` and ``make_eval_step`` in
+``pose_transfer_tpu/train/engine.py``: the deformable, stacked and U-Net
+generators, with L1 or the VGG content loss (``nn_loss`` over VGG19
+features) as the reconstruction term. Steps run eagerly:
 inference under ``torch.inference_mode()``; training as the JAX package's
 cadence — ``training_ratio`` discriminator updates (each on a fake-path
 draw and an independent real draw, the generator forward under
@@ -21,14 +23,19 @@ import numpy as np
 import torch
 
 from ..data.device import make_batch_preparer
+from ..models import vgg as vgg_mod
 from ..models.networks import (
     ChannelDropout,
     DeformableGenerator,
     Discriminator,
+    StackedGenerator,
+    UNetGenerator,
     decoder_filters_for,
     encoder_filters_for,
+    gaussian_weights_init,
     init_weights,
 )
+from ..ops.nn_loss import nn_loss
 from . import losses
 
 
@@ -44,8 +51,8 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class GANConfig:
-    """Configuration of the baseline deformable generator: serving and the
-    L1 training recipe."""
+    """Configuration of serving and training: the generator type and its
+    fold, the compute dtype and the training recipe."""
     image_size: tuple[int, int] = (256, 256)
     pose_dim: int = 18
     batch_size: int = 4
@@ -61,14 +68,19 @@ class GANConfig:
     # 'matmul' (two-pass banded products) | 'pallas' (the fused two-pass
     # warp fold, ops/warp_pallas.py); 'exact' is not ported and raises
     warp_backend: str = "matmul"
+    gen_type: str = "baseline"     # 'baseline' | 'stacked' | 'unet'
+    num_stacks: int = 4            # stages of the stacked generator
     compute_dtype: torch.dtype = torch.float32
     training_ratio: int = 1        # discriminator updates per generator one
     learning_rate: float = 2e-4
     l1_penalty_weight: float = 100.0
     gan_penalty_weight: float = 1.0
     tv_penalty_weight: float = 0.0
-    # only 'none' (L1) trains; VGG content losses are not ported
+    # 'none' (L1), or a VGG19 layer ('block1_conv2'): nn_loss over its
+    # features in an nn_loss_area_size² neighbourhood
     content_loss_layer: str = "none"
+    nn_loss_area_size: int = 1
+    weight_init: str = "xavier"    # 'xavier' | 'gaussian' (N(0, 0.02))
     # the tiny overfit-smoke model: the first 2 encoder stages, a decoder
     # of (dec[-2], 3), a discriminator of blocks 128, 256 and 1
     check_mode: bool = False
@@ -128,48 +140,93 @@ def auto_windowed(config: GANConfig, device: torch.device) -> bool:
     return kernel_place or config.batch_size >= 16
 
 
+def _init(module: torch.nn.Module, config: GANConfig,
+          g: torch.Generator) -> None:
+    """Glorot-uniform init, then for ``weight_init='gaussian'`` every conv
+    weight redrawn from N(0, 0.02), both from ``g``."""
+    if config.weight_init not in ("xavier", "gaussian"):
+        raise ValueError(f"invalid weight_init {config.weight_init!r}")
+    init_weights(module, g)
+    if config.weight_init == "gaussian":
+        gaussian_weights_init(module, g)
+
+
 def build_models(config: GANConfig, seed: int = 0,
-                 device=None) -> DeformableGenerator:
-    """The generator for ``config`` (``check_mode``: the tiny model),
-    Glorot-initialised from ``seed``, in eval mode on ``device`` (default
-    ``cuda``); windowing by ``auto_windowed``. ``warp_backend='exact'`` raises NotImplementedError.
+                 device=None) -> torch.nn.Module:
+    """The generator of ``config.gen_type`` (``check_mode``: the tiny
+    ladders), initialised from ``seed`` (``weight_init``), in eval mode on
+    ``device`` (default ``cuda``); the deformable fold windowed by
+    ``auto_windowed``. ``warp_backend='exact'`` raises NotImplementedError.
     """
     device = resolve_device(device)
-    windowed = auto_windowed(config, device)
     enc, dec = config.filters
-    gen = DeformableGenerator(
-        pose_dim=config.pose_dim, image_size=config.image_size,
-        nfilters_enc=enc, nfilters_dec=dec,
-        warp_skip=config.warp_skip, warp_agg=config.warp_agg,
-        use_input_pose=config.use_input_pose, warp_windowed=windowed,
-        warp_backend=config.warp_backend, warp_place=config.warp_place,
-        dtype=config.compute_dtype, device="meta")
+    if config.gen_type == "unet":
+        gen = UNetGenerator(config.input_nc, enc, dec,
+                            dtype=config.compute_dtype, device="meta")
+    elif config.gen_type in ("baseline", "stacked"):
+        kwargs = dict(
+            warp_skip=config.warp_skip, warp_agg=config.warp_agg,
+            use_input_pose=config.use_input_pose,
+            warp_windowed=auto_windowed(config, device),
+            warp_backend=config.warp_backend, warp_place=config.warp_place,
+            dtype=config.compute_dtype, device="meta")
+        if config.gen_type == "stacked":
+            gen = StackedGenerator(config.pose_dim, config.image_size, enc,
+                                   dec, num_stacks=config.num_stacks,
+                                   **kwargs)
+        else:
+            gen = DeformableGenerator(config.pose_dim, config.image_size,
+                                      enc, dec, **kwargs)
+    else:
+        raise ValueError(f"invalid gen_type {config.gen_type!r}")
     gen = gen.to_empty(device=device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    init_weights(gen, g)
+    _init(gen, config, g)
     return gen.eval()
 
 
-def make_eval_step(config: GANConfig, gen: DeformableGenerator, device=None):
+def batch_preparer(config: GANConfig, device):
+    """``data.device.make_batch_preparer`` for ``config`` on ``device``."""
+    return make_batch_preparer(
+        image_size=config.image_size, pose_dim=config.pose_dim,
+        device=device, use_input_pose=config.use_input_pose,
+        warp_skip=config.warp_skip, gen_type=config.gen_type,
+        num_stacks=config.num_stacks, dtype=config.compute_dtype)
+
+
+def gen_apply(gen: torch.nn.Module, batch: dict, config: GANConfig):
+    """The generator on a prepared batch → (output, stage outputs): the
+    stacked generator's last stage and its list of stages; otherwise the
+    output and an empty list."""
+    if config.gen_type == "stacked":
+        outputs = gen(batch["input"], batch["interpol_pose"],
+                      batch["interpol_warps"], batch["interpol_masks"])
+        return outputs[-1], outputs
+    if config.gen_type == "unet":
+        return gen(batch["input"]), []
+    return gen(batch["input"], batch["warps"], batch["masks"]), []
+
+
+def make_eval_step(config: GANConfig, gen: torch.nn.Module, device=None):
     """Inference forward on a compact batch → (images, prepared batch).
 
     Moves ``gen`` to ``device`` (default ``cuda``); the step puts it in
-    eval mode, takes a compact numpy batch and returns (N, H, W, 3) images
-    in [-1, 1] on the device.
+    eval mode, takes a compact numpy batch and returns images in [-1, 1] on
+    the device: (N, H, W, 3), or for the stacked generator every stage's,
+    (S, N, H, W, 3).
     """
     device = resolve_device(device)
     gen.to(device)
-    prepare = make_batch_preparer(
-        image_size=config.image_size, pose_dim=config.pose_dim,
-        device=device, use_input_pose=config.use_input_pose,
-        warp_skip=config.warp_skip, dtype=config.compute_dtype)
+    prepare = batch_preparer(config, device)
 
     def eval_step(batch_raw: dict):
         gen.eval()
         with torch.inference_mode():
             batch = prepare(batch_raw)
-            out = gen(batch["input"], batch["warps"], batch["masks"])
+            out, stages = gen_apply(gen, batch, config)
+            if stages:
+                out = torch.stack(stages)
         return out, batch
 
     return eval_step
@@ -178,12 +235,6 @@ def make_eval_step(config: GANConfig, gen: DeformableGenerator, device=None):
 # ----------------------------------------------------------------- training
 
 def _check_train_config(config: GANConfig) -> None:
-    if config.content_loss_layer != "none":
-        raise NotImplementedError(
-            f"content_loss_layer={config.content_loss_layer!r}: training "
-            "with the VGG content loss and nn_loss's backward is not ported "
-            "(ROADMAP.md §A item 6); only L1 reconstruction ('none') "
-            "trains")
     if config.training_ratio < 1:
         raise ValueError("training_ratio must be >= 1")
 
@@ -197,20 +248,24 @@ def make_optimizer(config: GANConfig, params) -> torch.optim.Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a training run mutates."""
-    gen: DeformableGenerator
+    """Everything a training run mutates, and the frozen VGG19 of the
+    content loss (None for L1; in no optimizer and no checkpoint)."""
+    gen: torch.nn.Module
     disc: Discriminator
     gen_opt: torch.optim.Optimizer
     disc_opt: torch.optim.Optimizer
     rng: torch.Generator           # channel-dropout draws
     step: int = 0
+    vgg: vgg_mod.VGG19Features | None = None
 
 
-def create_state(config: GANConfig, seed: int = 0,
-                 device=None) -> TrainState:
-    """Glorot-initialised generator and discriminator, both optimizers,
+def create_state(config: GANConfig, seed: int = 0, device=None,
+                 vgg: vgg_mod.VGG19Features | None = None) -> TrainState:
+    """Generator and discriminator (``weight_init``), both optimizers,
     step 0 and the dropout generator, on ``device`` (default ``cuda``). The
-    three seeds derive from ``seed`` (one numpy ``SeedSequence``)."""
+    three seeds derive from ``seed`` (one numpy ``SeedSequence``). With a
+    content loss, ``vgg`` (e.g. ``models.vgg.load_torch_vgg19_features``),
+    else the seeded random filters ``random_vgg19_features(0)``."""
     _check_train_config(config)
     device = resolve_device(device)
     gen_seed, disc_seed, rng_seed = (
@@ -223,13 +278,19 @@ def create_state(config: GANConfig, seed: int = 0,
                          device="meta").to_empty(device=device)
     g = torch.Generator(device=device)
     g.manual_seed(disc_seed)
-    init_weights(disc, g)
+    _init(disc, config, g)
     rng = torch.Generator(device=device)
     rng.manual_seed(rng_seed)
+    if config.content_loss_layer == "none":
+        vgg = None
+    elif vgg is None:
+        vgg = vgg_mod.random_vgg19_features(0, device)
+    else:
+        vgg = vgg.to(device)
     return TrainState(gen=gen, disc=disc,
                       gen_opt=make_optimizer(config, gen.parameters()),
                       disc_opt=make_optimizer(config, disc.parameters()),
-                      rng=rng)
+                      rng=rng, vgg=vgg)
 
 
 def disc_input(inp_packed: torch.Tensor, candidate: torch.Tensor,
@@ -242,6 +303,23 @@ def disc_input(inp_packed: torch.Tensor, candidate: torch.Tensor,
                       inp_packed[..., split:]], dim=-1)
 
 
+def reconstruction_loss(out_gen: torch.Tensor, target: torch.Tensor,
+                        vgg: vgg_mod.VGG19Features | None,
+                        config: GANConfig) -> torch.Tensor:
+    """L1, or with a content layer ``nn_loss`` (area
+    ``nn_loss_area_size``) between the two images' VGG19 features at that
+    layer, computed in float32 as in the JAX package
+    (``models.vgg.extract_features``, its 'correct' preprocessing: the JAX
+    CLI's ``--vgg_preprocess`` reaches no config)."""
+    if config.content_loss_layer == "none":
+        return losses.l1_loss(out_gen, target)
+    layer = vgg_mod.get_layer_ind(config.content_loss_layer)
+    f_gen = vgg_mod.extract_features(vgg, out_gen, layer)
+    f_tgt = vgg_mod.extract_features(vgg, target, layer)
+    a = config.nn_loss_area_size
+    return nn_loss(f_gen, f_tgt, a, a)
+
+
 class TrainStep:
     """One training iteration: ``step(disc_fake, disc_real, gen_batch) →
     (metrics, out_gen)``.
@@ -251,19 +329,20 @@ class TrainStep:
     update); ``gen_batch`` is one compact batch. Metrics stay on the
     device: ``{'gen': [total, ll, ad], 'disc': [total, true, fake]}``, the
     disc row averaged over the draws. ``out_gen`` is the generator phase's
-    (N, H, W, 3) output. The two phases are methods, so that a profiler
-    can time them.
+    (N, H, W, 3) output, for the stacked generator every stage's (S, N, H,
+    W, 3); the discriminator sees the last stage. The two phases are
+    methods, so that a profiler can time them.
     """
 
     def __init__(self, config: GANConfig, state: TrainState):
         _check_train_config(config)
         self.config = config
         self.state = state
-        device = next(state.gen.parameters()).device
-        self.prepare = make_batch_preparer(
-            image_size=config.image_size, pose_dim=config.pose_dim,
-            device=device, use_input_pose=config.use_input_pose,
-            warp_skip=config.warp_skip, dtype=config.compute_dtype)
+        if config.content_loss_layer != "none" and state.vgg is None:
+            raise ValueError("a content loss needs the state's VGG19 "
+                             "(create_state)")
+        self.prepare = batch_preparer(config,
+                                      next(state.gen.parameters()).device)
         for m in state.gen.modules():
             if isinstance(m, ChannelDropout):
                 m.generator = state.rng
@@ -282,7 +361,7 @@ class TrainStep:
         n = cfg.batch_size
         fake, real = self._prepare(fake_raw), self._prepare(real_raw)
         with torch.no_grad():
-            out_gen = st.gen(fake["input"], fake["warps"], fake["masks"])
+            out_gen, _ = gen_apply(st.gen, fake, cfg)
         both = torch.cat([disc_input(real["input"], real["target"], cfg),
                           disc_input(fake["input"], out_gen, cfg)])
         res = st.disc(both)
@@ -295,15 +374,17 @@ class TrainStep:
         return torch.stack([total, true_loss, fake_loss]).detach()
 
     def gen_phase(self, gen_raw: dict):
-        """One generator update → ([total, ll, ad], out_gen). Only the
-        generator's parameters receive gradients."""
+        """One generator update → ([total, ll, ad], out_gen: the output,
+        or the stacked generator's stages stacked). Only the generator's
+        parameters receive gradients."""
         cfg, st = self.config, self.state
         batch = self._prepare(gen_raw)
-        out_gen = st.gen(batch["input"], batch["warps"], batch["masks"])
+        out_gen, stages = gen_apply(st.gen, batch, cfg)
         d_out = st.disc(disc_input(batch["input"], out_gen, cfg))
         ad = losses.gen_adversarial_loss(d_out, cfg.gan_penalty_weight,
                                          cfg.batch_size)
-        ll = losses.l1_loss(out_gen, batch["target"]) * cfg.l1_penalty_weight
+        ll = reconstruction_loss(out_gen, batch["target"], st.vgg, cfg) \
+            * cfg.l1_penalty_weight
         total = ad + ll
         if cfg.tv_penalty_weight:
             total = total + cfg.tv_penalty_weight * \
@@ -311,7 +392,8 @@ class TrainStep:
         st.gen_opt.zero_grad(set_to_none=True)
         total.backward(inputs=list(st.gen.parameters()))
         st.gen_opt.step()
-        return torch.stack([total, ll, ad]).detach(), out_gen.detach()
+        out = torch.stack(stages) if stages else out_gen
+        return torch.stack([total, ll, ad]).detach(), out.detach()
 
     def __call__(self, disc_fake: dict, disc_real: dict, gen_batch: dict):
         cfg, st = self.config, self.state

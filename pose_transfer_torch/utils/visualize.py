@@ -1,7 +1,6 @@
 """Sample grids: skeleton rendering, tiling and the train-loop display.
 
-Counterpart of ``pose_transfer_tpu/utils/visualize.py`` (its baseline
-half), in numpy. Arrays are NHWC; a tensor argument (on any device, any
+Counterpart of ``pose_transfer_tpu/utils/visualize.py``, in numpy. Arrays are NHWC; a tensor argument (on any device, any
 float dtype) is read as float32 numpy first. ``save_image`` writes PNG
 through ``utils.image_io``.
 """
@@ -157,6 +156,33 @@ def display(input_batch, target_batch, output_batch, use_input_pose: bool,
             make_grid(pose_images, row, 1),
             make_grid(_to_uint8(target_batch), row, 1),
             make_grid(_to_uint8(output_batch), row, 1)]
+    return np.concatenate(cols, axis=1)
+
+
+def display_stacked(input_batch, interpol_batch, target_batch, outputs,
+                    num_stacks: int, use_input_pose: bool,
+                    pose_dim: int) -> np.ndarray:
+    """The stacked generator's grid: columns [input image | the
+    ``num_stacks`` interpolated-pose skeletons | target | every stage's
+    output], one row per sample. ``outputs`` holds the stages' (N, H, W, 3)
+    images (a list, or an (S, N, H, W, 3) array or tensor)."""
+    input_batch = _np(input_batch)
+    interpol_batch = _np(interpol_batch)
+    row = input_batch.shape[0]
+    inp_img = input_batch[..., :3]
+
+    pose_blocks = []
+    for i in range(num_stacks):
+        stage = interpol_batch[..., i * pose_dim:(i + 1) * pose_dim]
+        pose_blocks.append(np.array([draw_pose_from_map(p, pose_dim)[0]
+                                     for p in stage]))
+    interpol_img = make_grid(np.concatenate(pose_blocks, axis=0), row,
+                             num_stacks)
+    res_img = make_grid(
+        np.concatenate([_to_uint8(o) for o in outputs], axis=0),
+        row, num_stacks)
+    cols = [make_grid(_to_uint8(inp_img), row, 1), interpol_img,
+            make_grid(_to_uint8(target_batch), row, 1), res_img]
     return np.concatenate(cols, axis=1)
 
 

@@ -136,10 +136,6 @@ def test_profile_steps_write_a_trace(market_data):
 
 @pytest.mark.parametrize("flag,value,item", [
     ("--warp_backend", "exact", "item 8"),
-    ("--gen_type", "stacked", "item 7"),
-    ("--gen_type", "unet", "item 7"),
-    ("--weight_init", "gaussian", "item 7"),
-    ("--content_loss_layer", "block1_conv2", "item 6"),
     ("--num_devices", "2", "item 10"),
 ])
 def test_unported_flags_raise(market_data, flag, value, item):

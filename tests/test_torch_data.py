@@ -315,14 +315,6 @@ def test_dataset_interpol_fallback_and_missing_images(datasets, tmp_path):
         ds.load_image("trainp000_0001.png")
 
 
-def test_dataset_rejects_unported_generators(datasets):
-    jdir, _ = datasets[16]
-    for gen_type in ("stacked", "unet"):
-        opt = {**_opt(jdir, "h36m", 16), "gen_type": gen_type}
-        with pytest.raises(NotImplementedError, match="item 7"):
-            PoseTransferDataset(opt, "train")
-
-
 # ----------------------------------------------------------------- loader
 
 @pytest.mark.parametrize("seek", [0, 5])

@@ -389,12 +389,6 @@ def test_train_step_same_seed_same_step():
     assert all(torch.isfinite(m1[k]).all() for k in m1)
 
 
-def test_train_config_rejects_content_loss():
-    cfg = engine.GANConfig(content_loss_layer="block1_conv2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.create_state(cfg, device="cpu")
-
-
 def test_eval_step_resets_eval_mode():
     """A trainer leaves the generator in train mode; the eval step puts it
     back in eval mode on every call (dropout off: equal outputs)."""
