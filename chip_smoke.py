@@ -86,7 +86,32 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               run of 3 iterations, a stacked run that warm-starts from its
               checkpoint, cli.test's stacked grids, cli.evaluate's finite
               metrics on the last stage
- 13. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
+ 13. http_serve the HTTP front (cli.serve) at full width: a fashion-256
+              generator and discriminator (bf16, seeded) after one training
+              step, written as the JAX package's gen_001.msgpack and
+              disc_001.msgpack (models.import_flax's inverse map,
+              utils.flax_msgpack's encoder); build_server --resume 1 reads
+              them bit for bit; make_http_server on loopback answers 2 full
+              batches of 8 and 3 requests sent concurrently (200, uint8
+              256², held against the eval step within the serving limits
+              on the uint8 scale; fold_place 3 a forward; /stats counts
+              them; /healthz; a malformed body and a wrong-shape image 400);
+              then HTTP requests/s for 384 requests from 16 client threads
+              beside the same server's in-process capacity
+ 14. resume_msgpack cli.main --resume 1 on those files: one epoch of 2
+              iterations at b8, resumed at epoch 1 and the file's step with
+              both nets and both Adam states bit for bit the written ones;
+              losses finite, launches counted, .pt files written
+ 15. exact    warp_backend='exact': warp_feature_single against grid_sample
+              and the exact fold against the 'matmul' fold (m10 = 0) at
+              256²×64 f32; a serving forward and 2 training steps at b8
+              bf16 launching no fold kernel, ms and peak memory beside
+              'matmul''s
+ 16. keras    the Keras importer at full width: a seeded generator's and
+              discriminator's weights as Keras-order layer lists through
+              import_generator_keras / import_discriminator_keras, forwards
+              bit for bit those of the modules they came from
+ 17. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
      random set, as since their first port; ms_main, plain_ms_main and
      bound_ms_main on a training step's own inputs; launches summed over
      every path that drives them), then the last line
@@ -98,6 +123,7 @@ Exits non-zero without a CUDA device. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import contextlib
 import dataclasses
 import importlib
@@ -109,35 +135,44 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pose_transfer_torch import _build
 from pose_transfer_torch.cli import evaluate as cli_evaluate
 from pose_transfer_torch.cli import main as cli_main
 from pose_transfer_torch.cli import make_synthetic_data as cli_data
+from pose_transfer_torch.cli import serve as cli_serve
 from pose_transfer_torch.cli import test as cli_test
+from pose_transfer_torch.cli.opts import Opts
 from pose_transfer_torch.core.transforms_host import static_empty_parts
 from pose_transfer_torch.data.loader import BatchStream
 from pose_transfer_torch.data.dataset import collate
 from pose_transfer_torch.data.device import make_batch_preparer
 from pose_transfer_torch.data.synthetic import random_image, random_skeleton
+from pose_transfer_torch.models import import_flax, import_keras
 from pose_transfer_torch.models import vgg as vgg_mod
+from pose_transfer_torch.models.networks import Discriminator
 from pose_transfer_torch.ops import nn_loss as nn_loss_mod
 from pose_transfer_torch.ops import warp as warp_mod
 from pose_transfer_torch.ops import warp_fused
 from pose_transfer_torch.ops import warp_pallas
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.data.synthetic import synthetic_compact_batch
-from pose_transfer_torch.tools import bench_fold
+from pose_transfer_torch.tools import bench_fold, profile_serve
 from pose_transfer_torch.train import checkpoint
 from pose_transfer_torch.train.engine import (GANConfig, batch_preparer,
                                               build_models, create_state,
                                               make_eval_step,
                                               make_train_step)
+from pose_transfer_torch.utils import flax_msgpack
 from pose_transfer_torch.utils.image_io import read_image
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -1684,6 +1719,415 @@ def phase_cli_recipe(card: str) -> dict:
     return total
 
 
+# ------------------------------------ HTTP front, JAX files, 'exact', Keras
+
+HTTP_REQUESTS, HTTP_CLIENTS = 384, 16
+KERNELS = ("fold_place", "fold_place_idx", "fold_route", "warp_fold",
+           "warp_fold_idx", "warp_fold_bwd", "fold_place_stream")
+# warp_feature_single against grid_sample (f64 on a normalized affine
+# grid): the same bilinear function, the port's f32 positions rounded. A
+# position of magnitude up to 2h carries an error of a few f32 ulps of 2h
+# (EXACT_POS_ULPS), and a sample moves by that times the difference of
+# neighbouring values in each axis (≤ 2 max|f|). The exact fold against
+# the 'matmul' fold where m10 = 0, in f32: the same positions and tap
+# weights, the banded products summed in another order: within 1e-5 of the
+# largest magnitude (as on the CPU, tests/test_torch_exact.py)
+EXACT_POS_ULPS, EXACT_F32_REL = 4, 1e-5
+
+
+def _u8(x: torch.Tensor) -> np.ndarray:
+    """The server's uint8 map of [-1, 1] images."""
+    return ((x.float().clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8) \
+        .cpu().numpy()
+
+
+def _npz(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def _http(port, path, body=None):
+    """(status, body) of one request to the loopback server."""
+    url = f"http://127.0.0.1:{port}{path}"
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _image_of(body: bytes) -> np.ndarray:
+    with np.load(io.BytesIO(body)) as z:
+        return z["image"]
+
+
+def _jax_layout_run(root: Path) -> tuple:
+    """A fashion-256 deformable generator and discriminator (bf16 compute,
+    seeded) after one training step, written as the JAX package's
+    ``gen_001.msgpack``/``disc_001.msgpack`` under ``root/exp/jax/models``
+    (the inverse weight map and the msgpack encoder). Returns the state and
+    the models directory."""
+    cfg = _fashion()
+    run = _steps(cfg, 1, seed=21)
+    state = run["state"]
+    models = root / "exp" / "jax" / "models"
+    models.mkdir(parents=True)
+    gen_tree, disc_tree = import_flax.train_state_to_flax(state)
+    flax_msgpack.save(str(models / "gen_001.msgpack"), gen_tree)
+    flax_msgpack.save(str(models / "disc_001.msgpack"), disc_tree)
+    return state, models
+
+
+def _same_state_dict(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def phase_http_serve(card: str, root: Path, state) -> dict:
+    """cli.serve at full width: ``build_server --resume 1`` on the JAX-layout
+    files, ``make_http_server`` on loopback; 2 full batches and 3 requests
+    sent concurrently and held against the eval step, the error paths, then
+    HTTP requests/s under 16 client threads beside the same server's
+    in-process capacity. Returns the fold kernel launches of the first
+    requests."""
+    opt = Opts().parse([
+        "--expID", "jax", "--dataset", "fasion", "--pose_dim", "18",
+        "--batch_size", str(BATCH), "--compute_dtype", "bfloat16",
+        "--exp_root", str(root / "exp"), "--resume", "1",
+        "--max_wait_ms", "200", "--serve_port", "0", "--device", "cuda"])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        pts = cli_serve.build_server(opt)
+    secs, out = time.perf_counter() - t0, buf.getvalue()
+    check("Serving epoch-1 weights" in out, f"build_server: {out!r}")
+    check(_same_state_dict(pts.gen.state_dict(), state.gen.state_dict()),
+          "the served generator is not the one written, bit for bit")
+    cli_serve.warm_up(pts, 18)
+    httpd = cli_serve.make_http_server(pts, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        n_req = 2 * BATCH + 3
+        reqs = make_requests(np.random.default_rng(31), n_req, (256, 256))
+        bodies = [_npz(image=i, kp_from=a, kp_to=b) for i, a, b in reqs]
+        _reset_counts()
+        with cf.ThreadPoolExecutor(len(bodies)) as ex:
+            answers = list(ex.map(lambda b: _http(port, "/generate", b),
+                                  bodies))
+        counts = _counts()
+        stats = json.loads(_http(port, "/stats")[1])
+        check(all(code == 200 for code, _ in answers),
+              f"HTTP codes {[c for c, _ in answers]}")
+        got = np.stack([_image_of(b) for _, b in answers])
+        check(got.dtype == np.uint8 and got.shape == (n_req, 256, 256, 3),
+              f"served images {got.dtype} {got.shape}")
+        check(stats["served"] == n_req, f"/stats counts {stats['served']}")
+        forwards = stats["batches"]
+        place, fallbacks = counts["fold_place"], counts["scan_fallback"]
+        check(place + fallbacks == 3 * forwards and place > 0,
+              f"{place} fold_place + {fallbacks} fallbacks in {forwards} "
+              "forwards, not 3 a forward")
+        check(_http(port, "/healthz") == (200, b"ok"), "/healthz")
+        check(_http(port, "/generate", b"not-npz")[0] == 400,
+              "a malformed body is not answered 400")
+        img, kp_from, kp_to = reqs[0]
+        code, body = _http(port, "/generate", _npz(
+            image=img[:128], kp_from=kp_from, kp_to=kp_to))
+        check(code == 400 and b"image must be" in body,
+              f"a wrong-shape image answered {code} {body[:80]!r}")
+        # the eval step's uint8 output for the same requests, 8 at a time:
+        # the serving limits on [-1, 1], mapped to the uint8 scale
+        step = make_eval_step(pts.config, pts.gen, "cuda")
+        samples = [pts.prepare_request(*r) for r in reqs]
+        samples += [samples[-1]] * (-n_req % BATCH)
+        ref = np.concatenate([
+            _u8(step(collate(samples[i:i + BATCH]))[0])
+            for i in range(0, len(samples), BATCH)])[:n_req]
+        diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        res = {"max_abs_diff_u8": int(diff.max()),
+               "mean_abs_diff_u8": float(diff.mean())}
+        check(res["max_abs_diff_u8"] <= math.ceil(127.5 * BF16_MAX_ABS)
+              and res["mean_abs_diff_u8"] <= 127.5 * BF16_MEAN_ABS,
+              f"HTTP images against the eval step: {res}")
+        emit({"phase": "http_serve", "card": card, "batch": BATCH,
+              "dtype": "bfloat16", "build_server_s": secs,
+              "requests": n_req, "forwards": forwards,
+              "fold_place_launches": place, "scan_fallbacks": fallbacks,
+              "fold_place_per_forward": place / forwards,
+              "vs_eval_step": res, "stats": stats})
+
+        # load: the same 64 seeded requests from 16 client threads over
+        # HTTP (npz bodies encoded beforehand), then in process
+        rng = np.random.default_rng(32)
+        pool = profile_serve.requests(rng, 64, pts.config)
+        pool_bodies = [_npz(image=i, kp_from=a, kp_to=b)
+                       for i, a, b in pool]
+
+        def client(c):
+            codes = []
+            for j in range(c, HTTP_REQUESTS, HTTP_CLIENTS):
+                code, body = _http(port, "/generate",
+                                   pool_bodies[j % len(pool_bodies)])
+                codes.append(code)
+            return codes
+
+        pts.reset_stats()
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(HTTP_CLIENTS) as ex:
+            codes = [c for cs in ex.map(client, range(HTTP_CLIENTS))
+                     for c in cs]
+        http_s = time.perf_counter() - t0
+        http_stats = pts.stats()
+        check(codes.count(200) == HTTP_REQUESTS,
+              f"{HTTP_REQUESTS - codes.count(200)} HTTP requests failed")
+        capacity = profile_serve._serve_load(pts, pool, HTTP_REQUESTS, None,
+                                             rng)
+        check(capacity["failed"] == 0, "in-process requests failed")
+        emit({"phase": "http_serve_load", "card": card, "batch": BATCH,
+              "dtype": "bfloat16", "requests": HTTP_REQUESTS,
+              "clients": HTTP_CLIENTS,
+              "http_req_per_s": HTTP_REQUESTS / http_s,
+              "http_latency_p50_ms": http_stats["latency_p50_ms"],
+              "http_latency_p95_ms": http_stats["latency_p95_ms"],
+              "http_mean_batch_fill": http_stats["mean_batch_fill"],
+              "in_process_img_per_s": capacity["img_per_s"],
+              "in_process_latency_ms": capacity["latency_ms"],
+              "in_process_mean_batch_fill": capacity["mean_batch_fill"]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        pts.close()
+    return counts
+
+
+def phase_resume_msgpack(card: str, root: Path, state) -> dict:
+    """cli.main --resume 1 on the JAX-layout files: one epoch of 2
+    iterations at b8; resumes at epoch 1 and the file's step with both
+    optimizers' Adam state bit for bit the written one's; losses finite;
+    writes .pt files. Returns the fold kernel launches of the run."""
+    data = str(root / "data") + "/"
+    _cli(cli_data.main, ["--out", data, "--dataset", "fasion",
+                         "--pose_dim", "18"])
+    seen = {}
+    real_resume = checkpoint.resume
+
+    def resume(st, save_dir, *a, **k):
+        st, epoch = real_resume(st, save_dir, *a, **k)
+        seen.update(epoch=epoch, step=st.step, opt=all(
+            _same_opt(getattr(st, f"{n}_opt"), getattr(state, f"{n}_opt"))
+            for n in ("gen", "disc")), nets=all(
+            _same_state_dict(getattr(st, n).state_dict(),
+                             getattr(state, n).state_dict())
+            for n in ("gen", "disc")))
+        return st, epoch
+
+    flags = ["--expID", "jax", "--data_Dir", data, "--dataset", "fasion",
+             "--pose_dim", "18", "--compute_dtype", "bfloat16",
+             "--batch_size", str(BATCH), "--iters_per_epoch", "2",
+             "--number_of_epochs", "1", "--checkpoint_ratio", "1",
+             "--display_ratio", "1", "--exp_root", str(root / "exp"),
+             "--resume", "1", "--device", "cuda"]
+    checkpoint.resume = resume
+    _reset_counts()
+    try:
+        out, secs = _cli(cli_main.main, flags)
+    finally:
+        checkpoint.resume = real_resume
+    counts = _counts()
+    check(seen.get("epoch") == 1 and seen.get("step") == state.step,
+          f"resumed at {seen}")
+    check(seen["nets"] and seen["opt"], "the resumed weights or Adam "
+          "states are not the written ones, bit for bit")
+    check("rng key does not carry over" in out, "no reseed note")
+    exp = root / "exp" / "jax"
+    rows = [json.loads(ln) for ln in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    check(len(rows) == 2 and all(math.isfinite(v) for r in rows
+                                 for k, v in r.items()
+                                 if k not in ("epoch", "it")),
+          f"losses {rows}")
+    saved = torch.load(exp / "models" / "gen_001.pt", weights_only=True)
+    check(saved["step"] == state.step + 2, f"saved step {saved['step']}")
+    check(counts["fold_place"] > 0 and counts["fold_route"] > 0,
+          f"launches {counts}")
+    emit({"phase": "resume_msgpack", "card": card, "batch": BATCH,
+          "dtype": "bfloat16", "seconds": secs, "resumed": seen,
+          "losses": [{k: r[k] for k in ("it", "gen_total", "gen_ll",
+                                        "disc_total")} for r in rows],
+          "launches": {k: counts[k] for k in KERNELS},
+          "scan_fallbacks": counts["scan_fallback"]})
+    return counts
+
+
+def _same_opt(a, b) -> bool:
+    """Two Adam optimizers' states equal bit for bit (the step as a
+    number: the JAX layout stores it as an int32)."""
+    sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+    return sa.keys() == sb.keys() and all(
+        float(sa[i]["step"]) == float(sb[i]["step"])
+        and torch.equal(sa[i]["exp_avg"].cpu(), sb[i]["exp_avg"].cpu())
+        and torch.equal(sa[i]["exp_avg_sq"].cpu(),
+                        sb[i]["exp_avg_sq"].cpu()) for i in sa)
+
+
+def phase_exact(card: str) -> None:
+    """warp_backend='exact' on the card: warp_feature_single against
+    grid_sample and the exact fold against the 'matmul' one (m10 = 0) at
+    256²×64 f32; a full-width serving forward and 2 training steps at b8
+    bf16, no fold kernel launched, timed beside 'matmul'."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    n, h, c = BATCH, 256, 64
+    f = torch.randn((n, h, h, c), generator=gen, device="cuda")
+    batch = synthetic_compact_batch(np.random.default_rng(41), n, (h, h), 18)
+    warps = torch.as_tensor(batch["warps"], device="cuda")
+    got = warp_mod.warp_feature_single(f, warps[:, 1], (h, h))
+    m = warps[:, 1].double()
+    one = torch.ones_like(m[:, 0])
+    theta = torch.stack([
+        torch.stack([m[:, 0], m[:, 1], m[:, 0] + m[:, 1]
+                     + 2 * m[:, 2] / h - one], 1),
+        torch.stack([m[:, 3], m[:, 4], m[:, 3] + m[:, 4]
+                     + 2 * m[:, 5] / h - one], 1)], 1)
+    grid = F.affine_grid(theta, (n, 1, h, h), align_corners=False)
+    want = F.grid_sample(f.double().permute(0, 3, 1, 2), grid,
+                         mode="bilinear", padding_mode="zeros",
+                         align_corners=False).permute(0, 2, 3, 1)
+    gs_err = (got.double() - want).abs().max().item()
+    gs_scale = f.abs().max().item()
+    gs_tol = 2 * EXACT_POS_ULPS * 2.0 ** -23 * (2 * h) * 2 * gs_scale
+    check(gs_err <= gs_tol,
+          f"warp_feature_single vs grid_sample {gs_err} > {gs_tol}")
+
+    w0 = warps.clone()
+    w0[..., 3] = 0.0
+    masks = make_batch_preparer(image_size=(h, h), pose_dim=18,
+                                device="cuda")(batch)["masks"]
+    _reset_counts()
+    exact = warp_mod.affine_transform_layer(f, w0, masks, (h, h),
+                                            backend="exact")
+    check(not any(_counts().values()), "the exact fold launched a kernel")
+    matmul = warp_mod.affine_transform_layer(f, w0, masks, (h, h))
+    fold_err = (exact - matmul).abs().max().item()
+    fold_scale = matmul.abs().max().item()
+    check(fold_err <= EXACT_F32_REL * fold_scale,
+          f"exact vs matmul fold at m10 = 0: {fold_err} of {fold_scale}")
+    emit({"phase": "exact_ops", "card": card, "shape": [n, h, h, c],
+          "dtype": "float32", "vs_grid_sample_max_abs": gs_err,
+          "vs_grid_sample_tol": gs_tol, "features_max_abs": gs_scale,
+          "vs_matmul_fold_max_abs": fold_err, "vs_matmul_fold_scale":
+          fold_scale, "vs_matmul_fold_tol_rel": EXACT_F32_REL})
+    del f, got, want, grid, exact, matmul
+
+    for backend in ("matmul", "exact"):
+        cfg = _fashion(backend)
+        g = build_models(cfg, seed=0, device="cuda")
+        step = make_eval_step(cfg, g, "cuda")
+        reqs = make_requests(np.random.default_rng(42), BATCH, (256, 256))
+        with PoseTransferServer(cfg, g, device="cuda") as srv:
+            batch = collate([srv.prepare_request(*r) for r in reqs])
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        out, _ = step(batch)
+        fwd_counts = _counts()
+        check_images(out.float().cpu().numpy(), BATCH, f"{backend} forward")
+        fwd_ms = time_cuda(lambda: step(batch), 5)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        del g, step
+        run = _steps(cfg, 2, seed=43)
+        if backend == "exact":
+            check(not any(fwd_counts[k] for k in KERNELS)
+                  and not any(run["counts"][k] for k in KERNELS),
+                  f"'exact' launched {fwd_counts} / {run['counts']}")
+        emit({"phase": "exact", "backend": backend, "card": card,
+              "batch": BATCH, "dtype": "bfloat16",
+              "forward_ms": fwd_ms, "forward_peak_mem_gb": fwd_peak,
+              "step_ms": run["step_ms"], "steps": 2,
+              "step_peak_mem_gb": run["peak_mem_gb"],
+              "losses": {"gen [total, ll, ad]": run["rows"]["gen"],
+                         "disc [total, true, fake]": run["rows"]["disc"]},
+              "launches": {k: run["counts"][k] for k in KERNELS}})
+        del run
+
+
+def _keras_layers(sd: dict, groups: list, rng) -> list:
+    """Keras-order weight lists of ``groups`` (a module's weight names per
+    Keras layer, in the reference's walk order), in Keras shapes: a conv
+    kernel (kh, kw, ·, ·) is the inverse of the reference's [3, 2, 0, 1]
+    transpose. Layers without weights in between, drawn from ``rng``."""
+    layers = [[]]
+    for names in groups:
+        ws = []
+        for name in names:
+            w = sd[name].numpy()
+            ws.append(np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+                      if w.ndim == 4 else w)
+        layers += [ws, []] if rng.random() < 0.5 else [ws]
+    return layers
+
+
+def _walk_names(sd: dict) -> list:
+    """The module's weights grouped per Keras layer, in the walk order of
+    ``models.import_keras`` (conv [+ bias], then norm scale + bias)."""
+    groups, seen = [], set()
+    for name in sd:
+        stem = name.rsplit(".", 1)[0]
+        if stem in seen:
+            continue
+        seen.add(stem)
+        groups.append([f"{stem}.weight"] + ([f"{stem}.bias"]
+                                            if f"{stem}.bias" in sd
+                                            else []))
+    return groups
+
+
+def phase_keras(card: str) -> None:
+    """The Keras importer at full width: a seeded generator's and
+    discriminator's weights as Keras-order layer lists through
+    ``import_generator_keras`` / ``import_discriminator_keras`` into fresh
+    modules; their forwards finite and bit for bit those of the modules
+    the weights came from (no .h5: the card has no h5py)."""
+    cfg = _fashion()
+    rng = np.random.default_rng(51)
+    src = build_models(cfg, seed=5, device="cuda")
+    dst = build_models(cfg, seed=6, device="cuda")
+    sd = {k: v.cpu() for k, v in src.state_dict().items()}
+    n_enc, n_dec = (len(x) for x in cfg.filters)
+    layers = _keras_layers(sd, _walk_names(sd), rng)
+    dst.load_state_dict(import_keras.import_generator_keras(layers, n_enc,
+                                                            n_dec))
+    reqs = make_requests(np.random.default_rng(52), BATCH, (256, 256))
+    with PoseTransferServer(cfg, src, device="cuda") as srv:
+        batch = collate([srv.prepare_request(*r) for r in reqs])
+    a = make_eval_step(cfg, src, "cuda")(batch)[0]
+    b = make_eval_step(cfg, dst, "cuda")(batch)[0]
+    check(bool(torch.isfinite(b).all()) and torch.equal(a, b),
+          "the Keras-imported generator's forward differs")
+
+    torch.manual_seed(53)
+    disc = Discriminator(cfg.input_nc + 3, dtype=torch.bfloat16,
+                         device="cuda")
+    disc2 = Discriminator(cfg.input_nc + 3, dtype=torch.bfloat16,
+                          device="cuda")
+    dsd = {k: v.cpu() for k, v in disc.state_dict().items()}
+    disc2.load_state_dict(import_keras.import_discriminator_keras(
+        _keras_layers(dsd, _walk_names(dsd), rng)))
+    x = torch.randn((BATCH, 256, 256, cfg.input_nc + 3), device="cuda")
+    with torch.no_grad():
+        da, db = disc(x), disc2(x)
+    check(bool(torch.isfinite(db).all()) and torch.equal(da, db),
+          "the Keras-imported discriminator's forward differs")
+    emit({"phase": "keras", "card": card, "gen_params": sum(
+        v.numel() for v in sd.values()), "disc_params": sum(
+        v.numel() for v in dsd.values()), "keras_layers": len(layers),
+        "forwards_bitwise": True})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                 "on one CUDA card (see the module's notes).")
@@ -1750,6 +2194,17 @@ def main(argv=None) -> int:
     new_paths = [phase_recipe(smi), phase_stacked(smi)]
     phase_unet(smi)
     new_paths.append(phase_cli_recipe(smi))
+    # the HTTP front and the msgpack resume on JAX-layout files,
+    # 'exact', the Keras importer
+    tmp = tempfile.TemporaryDirectory(prefix="jax_layout_")
+    root = Path(tmp.name)
+    written, _ = _jax_layout_run(root)
+    new_paths.append(phase_http_serve(smi, root, written))
+    new_paths.append(phase_resume_msgpack(smi, root, written))
+    del written
+    tmp.cleanup()
+    phase_exact(smi)
+    phase_keras(smi)
 
     def new(name):
         return sum(p[name] for p in new_paths)

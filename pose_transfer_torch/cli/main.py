@@ -11,9 +11,13 @@ restarts at the latest checkpoint's epoch and seeks the train stream past
 the batches the earlier epochs drew.
 
 With ``--gen_type stacked`` and no ``--generator_checkpoint``, the shared
-generator warm-starts from the latest ``gen_*.pt`` of the deformable run
+generator warm-starts from the latest ``gen_*.pt`` (else ``gen_*.msgpack``,
+the JAX package's) of the deformable run
 ``<exp_root>/full_<dataset>/models`` where there is one, and its grids
-show every stage. ``--content_loss_layer`` reads ``--vgg_weights`` (a
+show every stage. ``--resume 1``, ``--generator_checkpoint`` and
+``--discriminator_checkpoint`` read the port's ``.pt`` files and the JAX
+package's ``.msgpack`` files alike (``train.checkpoint``).
+``--content_loss_layer`` reads ``--vgg_weights`` (a
 torch VGG19 state_dict) where given, else seeded random filters.
 
 The losses stay on the device as running sums and are fetched only when
@@ -88,7 +92,8 @@ def main(argv=None):
 
     start_epoch = 1
     if opt.resume == 1:
-        state, start_epoch = checkpoint.resume(state, opt.checkpoints_dir)
+        state, start_epoch = checkpoint.resume(state, opt.checkpoints_dir,
+                                               seed=opt.seed)
 
     train_step = make_train_step(config, state)
     eval_step = make_eval_step(config, state.gen, device)
@@ -122,7 +127,7 @@ def _warm_start_stacked(opt, state) -> None:
     generator from the deformable run ``full_<dataset>``'s latest
     checkpoint (the reference requires that run)."""
     warm_dir = os.path.join(opt.exp_root, f"full_{opt.dataset}", "models")
-    warm = checkpoint.get_model_list(warm_dir, "gen")
+    warm = checkpoint.latest(warm_dir, "gen")
     if warm:
         checkpoint.load_params(warm, state.gen.generator)
         print(f"Warm-started stacked generator from {warm}")

@@ -6,10 +6,9 @@ the dataset's image size and file paths, the ``opt.txt`` dump) and
 ``config_from_opt``. The port adds one flag, ``--device`` (default
 ``cuda``; ``cpu`` runs on the CPU, as the tests do).
 
-Flags whose paths are not ported raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item rather than run something else:
-``--warp_backend exact`` (§A item 8) and ``--num_devices`` above 1 (§A
-item 10); 0 and 1 run on one device.
+``--num_devices`` above 1 (data-parallel runs, not ported) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item rather than run
+something else; 0 and 1 run on one device.
 """
 
 from __future__ import annotations
@@ -110,7 +109,7 @@ class Opts:
         p.add_argument("--warp_backend", default="matmul",
                        choices=["matmul", "exact"],
                        help="matmul = two-pass banded warp; exact = gather "
-                            "bilinear (not ported)")
+                            "bilinear (grid_sample parity)")
         p.add_argument("--warp_windowed", default="auto",
                        choices=["auto", "0", "1"],
                        help="mask-windowed warp fold: auto = on with the "
@@ -190,14 +189,9 @@ class Opts:
 
 def config_from_opt(opt):
     """GANConfig from parsed opts (``--compute_dtype`` included); raises
-    ``NotImplementedError`` for the flags whose paths are not ported, and
-    for ``--num_devices`` above 1."""
+    ``NotImplementedError`` for ``--num_devices`` above 1."""
     from ..train.engine import GANConfig
 
-    if opt.warp_backend == "exact":
-        raise NotImplementedError(
-            "--warp_backend exact: the gather-bilinear warp is not ported "
-            "(ROADMAP.md §A item 8)")
     if opt.num_devices > 1:
         raise NotImplementedError(
             f"--num_devices {opt.num_devices}: data-parallel runs are not "

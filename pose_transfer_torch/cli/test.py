@@ -2,6 +2,7 @@
 
 Counterpart of ``pose_transfer_tpu/cli/test.py``: the generator of the
 latest checkpoint (the generator alone: a missing disc file is no error)
+(the port's ``.pt`` or the JAX package's ``.msgpack``)
 runs over the test split in order, one ``images_batch_{b:05d}.png`` grid
 per full batch in ``generated_images_dir`` (the stacked generator's with
 every stage).
@@ -34,7 +35,7 @@ def inference_setup(opt):
                                              content_loss_layer="none"),
                          seed=opt.seed, device=device)
     state, epoch = checkpoint.resume(state, opt.checkpoints_dir,
-                                     require_disc=False)
+                                     require_disc=False, seed=opt.seed)
     return config, dataset, make_eval_step(config, state.gen, device), epoch
 
 

@@ -1,9 +1,12 @@
-"""Host-side (numpy) per-pair warp estimation: affine fits and mask polygons.
+"""Host-side (numpy) per-pair warp estimation: affine fits and part masks.
 
-The serving half of ``pose_transfer_tpu/core/transforms_host.py``, copied so
-that the port needs nothing of the JAX package. It re-implements the
-estimation half of the reference's ``utils/pose_transform.py`` without
-skimage (``estimate_affine`` is a closed-form least-squares fit).
+Counterpart of ``pose_transfer_tpu/core/transforms_host.py``, copied so
+that the port needs nothing of the JAX package: the serving half (fits and
+mask polygons, rasterized on the device) and the host half (``pose_masks``,
+rasterized here by ``grid_points_in_poly`` and ``mask_from_kp_array``, for
+``PoseTransferDataset.item_reference``). It re-implements the reference's
+``utils/pose_transform.py`` without skimage (``estimate_affine`` is a
+closed-form least-squares fit).
 
 Behavioral quirks reproduced on purpose (they are the reference's semantics):
 - transforms are *inverse* affines, output→input;
@@ -16,6 +19,8 @@ Behavioral quirks reproduced on purpose (they are the reference's semantics):
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -42,6 +47,13 @@ LIMB_PARTS = (
 )
 
 NUM_PARTS = 2 + len(LIMB_PARTS)  # body + head + 8 limb segments
+
+
+def load_pose_cords_from_strings(y_str: str, x_str: str) -> np.ndarray:
+    """Annotation CSV JSON lists → (K, 2) int array of (y, x)."""
+    y = np.asarray(json.loads(y_str))
+    x = np.asarray(json.loads(x_str))
+    return np.stack([y, x], axis=1)
 
 
 def give_name_to_keypoints(array: np.ndarray, pose_dim: int) -> dict:
@@ -199,6 +211,81 @@ def estimate_uniform_transform(array1: np.ndarray, array2: np.ndarray,
         return tr.reshape((-1, 9))
     except np.linalg.LinAlgError:
         return NO_POINT_TR.reshape((-1, 9))
+
+
+def grid_points_in_poly(shape: tuple[int, int],
+                        verts: np.ndarray) -> np.ndarray:
+    """Even-odd point-in-polygon test on the integer pixel grid.
+
+    ``verts`` are (N, 2) (row, col) polygon vertices. Replacement for
+    skimage.measure.grid_points_in_poly as the reference uses it.
+    """
+    h, w = shape
+    rr = np.arange(h, dtype=np.float64)[:, None]
+    cc = np.arange(w, dtype=np.float64)[None, :]
+    vy = verts[:, 0]
+    vx = verts[:, 1]
+    inside = np.zeros((h, w), dtype=bool)
+    n = len(verts)
+    for i in range(n):
+        y1, x1 = vy[i], vx[i]
+        y2, x2 = vy[(i + 1) % n], vx[(i + 1) % n]
+        if y1 == y2:
+            continue
+        # edge crosses the horizontal line through the pixel row
+        cond = (rr >= min(y1, y2)) & (rr < max(y1, y2))
+        x_int = x1 + (rr - y1) * (x2 - x1) / (y2 - y1)
+        inside ^= cond & (cc < x_int)
+    return inside
+
+
+def mask_from_kp_array(kp_array: np.ndarray, border_inc: float,
+                       img_size: tuple[int, int]) -> np.ndarray:
+    """Axis-aligned box mask around keypoints (the reference's
+    ``pose_transform.py``).
+
+    ``kp_array`` is (N, 2) in (x, y); the box is truncated-int expanded and
+    clamped to [0, (W, H)].
+    """
+    mn = np.min(kp_array, axis=0) - int(border_inc)
+    mx = np.max(kp_array, axis=0) + int(border_inc)
+    mn = np.maximum(mn, 0)
+    mx = np.minimum(mx, np.asarray(img_size)[::-1])
+    mask = np.zeros(img_size)
+    mask[int(mn[1]):int(mx[1]), int(mn[0]):int(mx[0])] = 1
+    return mask
+
+
+def pose_masks(array2: np.ndarray, img_size: tuple[int, int],
+               pose_dim: int) -> np.ndarray:
+    """10 binary part masks in target pose space → (10, H, W) float.
+
+    As the reference's ``pose_transform.py``: body = all ones, head = box
+    around the head-keypoint center of mass ±0.4·st, 8 limb quads
+    rasterized even-odd.
+    """
+    kp2 = give_name_to_keypoints(array2, pose_dim)
+    st2 = compute_st_distance(kp2)
+    empty = np.zeros(img_size)
+    masks = [np.ones(img_size)]
+
+    head_names = [n for n in HEAD_CANDIDATE_NAMES if n in kp2]
+    if head_names:
+        com = np.mean([kp2[n] for n in head_names], axis=0,
+                      keepdims=True).astype(int)
+        masks.append(mask_from_kp_array(com, 0.40 * st2, img_size))
+    else:
+        masks.append(empty)
+
+    for fr, to, _, inc_to in LIMB_PARTS:
+        if not check_keypoints_present(kp2, [fr, to]):
+            masks.append(empty)
+            continue
+        poly = estimate_polygon(kp2[fr], kp2[to], st2, inc_to, 0.1, 0.2, 0.2)
+        masks.append(grid_points_in_poly(img_size,
+                                         poly[:, ::-1]).astype(float))
+
+    return np.array(masks)
 
 
 def pose_mask_polys(array2: np.ndarray, img_size: tuple[int, int],

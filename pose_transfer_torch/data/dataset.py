@@ -142,6 +142,58 @@ class PoseTransferDataset:
     def __getitem__(self, index: int) -> dict:
         return self.item_compact(index)
 
+    def item_reference(self, index: int):
+        """The reference's ``__getitem__`` tuple, NCHW float32, built on the
+        CPU (for parity tests and goldens).
+
+        baseline: (input, target, warps, masks); stacked: (input, target,
+        interpol_pose, interpol_warps, interpol_masks).
+        """
+        import torch
+
+        from ..core.pose import cords_to_map
+        from ..ops.masks import rasterize_part_masks
+
+        pair = self.pair(index)
+        kp_from = self.keypoints(pair["from"])
+        kp_to = self.keypoints(pair["to"])
+
+        def heat(kp):
+            hm = cords_to_map(torch.tensor(kp, dtype=torch.float32),
+                              self.image_size).numpy()
+            return np.transpose(hm, (2, 0, 1))
+
+        def img(name):
+            x = self.load_image(name).astype(np.float32)
+            return np.transpose((x / 255.0 - 0.5) * 2.0, (2, 0, 1))
+
+        parts = [img(pair["from"])]
+        if self.use_input_pose:
+            parts.append(heat(kp_from))
+        parts.append(heat(kp_to))
+        packed = np.concatenate(parts, axis=0).astype(np.float32)
+        target = img(pair["to"])
+
+        if self.gen_type != "stacked":
+            if self.warp_skip == "mask":
+                warps = th.affine_transforms(kp_from, kp_to, self.pose_dim)
+                masks = th.pose_masks(kp_to, self.image_size, self.pose_dim)
+            else:
+                warps = th.estimate_uniform_transform(kp_from, kp_to,
+                                                      self.pose_dim)
+                masks = np.ones(1)
+            return packed, target, warps, masks
+
+        interpol, warp8, polys, kinds = interpol_chain(
+            kp_from, kp_to, self.pose_dim, self.image_size, self.warp_skip,
+            self.num_stacks)
+        interpol_map = np.concatenate([heat(k) for k in interpol], axis=0)
+        masks = np.stack([
+            rasterize_part_masks(torch.as_tensor(p), torch.as_tensor(k),
+                                 self.image_size).numpy()
+            for p, k in zip(polys, kinds)])
+        return packed, target, interpol_map, warp8, masks
+
 
 def collate(samples: list[dict]) -> dict:
     """Stack compact samples into one numpy batch dict."""

@@ -192,7 +192,8 @@ class DeformableGenerator(nn.Module):
     warps (N, T, 8), masks (N, T, H, W) or None → (N, H, W, 3) in [-1, 1].
     The appearance skips of the first ``num_warp_stages`` stages go
     through ``affine_transform_layer``; ``warp_backend`` 'pallas' sends the
-    stages the fused warp fold supports to it (``ops/warp_pallas.py``);
+    stages the fused warp fold supports to it (``ops/warp_pallas.py``),
+    'exact' every stage to the gather-bilinear fold;
     ``warp_place`` ('auto' | 'kernel' | 'xla') chooses the windowed fold's
     placement (``ops.warp.plan_folds``).
     """

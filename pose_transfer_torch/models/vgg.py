@@ -74,9 +74,13 @@ class VGG19Features(nn.Module):
         self.features = nn.Sequential(*layers)
 
 
-def random_vgg19_features(seed: int = 0, device="cpu") -> VGG19Features:
+def random_vgg19_features(seed: int = 0, device=None) -> VGG19Features:
     """Glorot-uniform filters and zero biases, drawn in layer order from a
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``, on ``device`` (default ``cuda``, which
+    must exist)."""
+    from ..train.engine import resolve_device
+
+    device = resolve_device(device)
     vgg = VGG19Features(device="meta").to_empty(device=device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -87,10 +91,14 @@ def random_vgg19_features(seed: int = 0, device="cpu") -> VGG19Features:
     return vgg.eval().requires_grad_(False)
 
 
-def load_torch_vgg19_features(path: str, device="cpu") -> VGG19Features:
+def load_torch_vgg19_features(path: str, device=None) -> VGG19Features:
     """A VGG19 from a local torch checkpoint: torchvision's full
     state_dict (``vgg19-dcbb9e9d.pth``), a ``features.*`` dict, or a
-    pickled module; only the ``features.*`` entries are read."""
+    pickled module; only the ``features.*`` entries are read. On
+    ``device`` (default ``cuda``, which must exist)."""
+    from ..train.engine import resolve_device
+
+    device = resolve_device(device)
     state = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(state, "state_dict"):
         state = state.state_dict()

@@ -44,6 +44,14 @@ fold is a max to the fused two-pass warp fold of ``ops/warp_pallas.py``
 (forward and backward kernels, ``WarpFoldPallas``); the other instances
 take the branches above, as in the JAX package (``warp.py:1282-1293``).
 
+``backend='exact'`` (the JAX package's ``warp_backend='exact'``) warps each
+part directly: four bilinear taps gathered per output pixel at its
+transformed position (``warp_feature_single``, ``grid_sample`` semantics
+with zero padding), folded in part order by ``torch.maximum`` (or summed
+for 'avg') and recomputed in the backward (``torch.utils.checkpoint``, as
+the JAX package's ``jax.checkpoint``). It plans no windows and launches no
+kernel: the JAX package has no Pallas kernel for it.
+
 Transforms are (T, 8) row-major first-8 of a 3×3 matrix acting on (x, y, 1),
 estimated at ``init_image_size``; translations are rescaled per feature
 resolution.
@@ -55,8 +63,11 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import warp_fused, warp_pallas
+
+BACKENDS = ("matmul", "pallas", "exact")
 
 # fold instances that could have taken the windowed fold but fell back to
 # the full scan because some part's support did not fit its window
@@ -90,6 +101,96 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     rx = torch.as_tensor(_resize_matrix(w_out, w_in), dtype=x.dtype,
                          device=x.device)
     return torch.matmul(torch.matmul(ry, x), rx.t())
+
+
+def _sample_coords(warps: torch.Tensor, h: int, w: int, scale_y: float,
+                   scale_x: float):
+    """Pixel-space sample positions (v, u), each (N, h, w) f32, of (N, 8)
+    inverse affines; the translations scaled in the transforms' dtype, as
+    in JAX."""
+    m00, m01, tx, m10, m11, ty = (warps[:, k] for k in range(6))
+    tx = tx * scale_x
+    ty = ty * scale_y
+
+    def col(v):          # (N,) → (N, 1, 1) f32
+        return v.float()[:, None, None]
+
+    dev = warps.device
+    x = torch.arange(w, dtype=torch.float32, device=dev)[None, None] + 0.5
+    y = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] + 0.5
+    u = col(m00) * x + col(m01) * y + col(tx) - 0.5       # input x
+    v = col(m10) * x + col(m11) * y + col(ty) - 0.5       # input y
+    return v, u
+
+
+def bilinear_sample(image: torch.Tensor, v: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample with zero padding (``grid_sample`` semantics).
+
+    Args:
+      image: (N, H, W, C).
+      v, u: (N, Ho, Wo) f32 sample positions (row, col) in pixel units.
+
+    Returns:
+      (N, Ho, Wo, C) samples in ``image``'s dtype: each tap's value times
+      its f32 weight (0 out of bounds), the four summed in f32 in JAX's
+      order, then rounded once.
+    """
+    n, h, w, c = image.shape
+    ho, wo = v.shape[1:]
+    v0 = torch.floor(v)
+    u0 = torch.floor(u)
+    fv = v - v0
+    fu = u - u0
+    v0 = v0.to(torch.int64)
+    u0 = u0.to(torch.int64)
+    flat = image.reshape(n * h * w, c)
+    base = (torch.arange(n, device=image.device) * (h * w))[:, None, None]
+
+    def tap(vi, ui, weight):
+        valid = (vi >= 0) & (vi < h) & (ui >= 0) & (ui < w)
+        idx = base + vi.clamp(0, h - 1) * w + ui.clamp(0, w - 1)
+        vals = flat.index_select(0, idx.reshape(-1)).reshape(n, ho, wo, c)
+        return vals * (weight * valid)[..., None]
+
+    out = (tap(v0, u0, (1 - fv) * (1 - fu))
+           + tap(v0, u0 + 1, (1 - fv) * fu)
+           + tap(v0 + 1, u0, fv * (1 - fu))
+           + tap(v0 + 1, u0 + 1, fv * fu))
+    return out.to(image.dtype)
+
+
+def warp_feature_single(features: torch.Tensor, warps: torch.Tensor,
+                        init_image_size: tuple[int, int]) -> torch.Tensor:
+    """Warp each (H, W, C) map of (N, H, W, C) features by its (8,) inverse
+    affine of (N, 8) ``warps`` (the JAX function vmapped over the batch);
+    the sample positions carry no gradient."""
+    _, h, w, _ = features.shape
+    v, u = _sample_coords(warps, h, w, scale_y=h / init_image_size[0],
+                          scale_x=w / init_image_size[1])
+    return bilinear_sample(features, v.detach(), u.detach())
+
+
+def _fold_exact(features, warps, masks_r, init_image_size, warp_agg):
+    """The 'exact' fold: every part warped by ``warp_feature_single``,
+    masked, and folded in part order by ``torch.maximum`` from -inf (a tie
+    splits the cotangent in half, as ``jnp.maximum``'s does) or summed in
+    the features' dtype and divided by the part count."""
+    n, h, w, c = features.shape
+    t = warps.shape[1]
+    if warp_agg == "max":
+        acc = torch.full((n, h, w, c), float("-inf"), dtype=features.dtype,
+                         device=features.device)
+    else:
+        acc = torch.zeros((n, h, w, c), dtype=features.dtype,
+                          device=features.device)
+    for i in range(t):
+        warped = warp_feature_single(features, warps[:, i], init_image_size)
+        if masks_r is not None:
+            warped = warped * masks_r[:, i][..., None]
+        acc = torch.maximum(acc, warped) if warp_agg == "max" \
+            else acc + warped
+    return acc / t if warp_agg == "avg" else acc
 
 
 def _ramp(pos: torch.Tensor, n_in: int, dtype: torch.dtype) -> torch.Tensor:
@@ -557,6 +658,7 @@ class FoldPlan:
     fits: bool = False
     pallas: bool = False       # the fused two-pass warp fold
     xla: bool = False          # windows placed by _fold_windowed
+    exact: bool = False        # the gather-bilinear fold, _fold_exact
 
 
 def check_place(place_impl: str) -> None:
@@ -567,14 +669,10 @@ def check_place(place_impl: str) -> None:
 
 
 def check_backend(backend: str) -> None:
-    """Raise on a warp backend the port does not run."""
-    if backend == "exact":
-        raise NotImplementedError(
-            "warp_backend='exact' (the direct gather-bilinear warp, "
-            "warp_feature_single) is not ported yet (ROADMAP.md §A); use "
-            "'matmul' or 'pallas'")
-    if backend not in ("matmul", "pallas"):
-        raise ValueError(f"invalid warp backend {backend!r}")
+    """Raise on an unknown warp backend."""
+    if backend not in BACKENDS:
+        raise ValueError(f"invalid warp backend {backend!r}; one of "
+                         f"{BACKENDS}")
 
 
 def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
@@ -587,9 +685,11 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
 
     Resizes the masks for every instance, marks the instances that take the
     fused warp fold (``backend='pallas'``: a supported shape and a max
-    fold; they need no windows), computes every other windowed instance's
-    support windows for its placement (``place_impl``: the kernel's widened,
-    aligned windows, or the (h/2, w/2) ones of the XLA-style placement), and
+    fold; they need no windows) or the gather-bilinear fold
+    (``backend='exact'``: every instance, no windows), computes every
+    other windowed instance's support windows for its placement
+    (``place_impl``: the kernel's widened, aligned windows, or the (h/2,
+    w/2) ones of the XLA-style placement), and
     resolves all 'does every non-body part fit its window?' flags with ONE
     host sync. A fold whose parts do not all fit takes the full scan, where
     the JAX package's ``lax.cond`` takes it.
@@ -606,7 +706,9 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
         else:
             masks_r = None
         plan = FoldPlan(masks_r)
-        if backend == "pallas" and warp_agg == "max" \
+        if backend == "exact":
+            plan.exact = True
+        elif backend == "pallas" and warp_agg == "max" \
                 and warp_pallas.supported(h, w):
             plan.pallas = True
         else:
@@ -649,6 +751,9 @@ def _pallas_args(features, warps, masks_r, init_image_size):
 def _fold(features, warps, plan, init_image_size, warp_agg, static_empty,
           emit_idx):
     """The fold on the branch ``plan`` chose → (out, idx, windowed)."""
+    if plan.exact:
+        return _fold_exact(features, warps, plan.masks_r, init_image_size,
+                           warp_agg), None, False
     if plan.pallas:
         out, idx = warp_pallas.warp_fold(
             *_pallas_args(features, warps, plan.masks_r, init_image_size),
@@ -729,9 +834,10 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
     """Warp + (mask) + aggregate over the T part transforms.
 
     Differentiable in ``features`` (``WarpFold``, or ``WarpFoldPallas`` on
-    the fused branch) when grad mode is on and they require grad;
-    otherwise the forward alone runs, without the argmax (serving and the
-    discriminator phase's generator forward).
+    the fused branch, or the 'exact' fold under ``torch.utils.checkpoint``)
+    when grad mode is on and they require grad; otherwise the forward alone
+    runs, without the argmax (serving and the discriminator phase's
+    generator forward).
 
     Args:
       features: (N, h, w, C) NHWC appearance skip.
@@ -746,7 +852,8 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
       static_empty: part indices that are empty for every input (the
         fused branch folds every part, as in the JAX package).
       plan: this instance's ``plan_folds`` entry (computed here if None).
-      backend: 'matmul' or 'pallas' (read only when ``plan`` is None).
+      backend: 'matmul', 'pallas' or 'exact' (read only when ``plan`` is
+        None).
       place_impl: the windowed placement, 'auto', 'kernel' or 'xla' (read
         only when ``plan`` is None).
 
@@ -758,6 +865,12 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
                           features.dtype, warp_skip, warp_agg, windowed,
                           static_empty, backend, place_impl)[0]
     if torch.is_grad_enabled() and features.requires_grad:
+        if plan.exact:
+            # recomputed in the backward: autograd would otherwise keep
+            # every part's gathered taps
+            return torch.utils.checkpoint.checkpoint(
+                _fold_exact, features, warps, plan.masks_r, init_image_size,
+                warp_agg, use_reentrant=False)
         if plan.pallas:
             return warp_pallas.WarpFoldPallas.apply(*_pallas_args(
                 features, warps, plan.masks_r, init_image_size))

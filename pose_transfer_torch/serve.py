@@ -53,6 +53,7 @@ class PoseTransferServer:
             raise ValueError(f"unknown output_dtype {output_dtype!r}")
         self._output_dtype = output_dtype
         self._config = config
+        self._gen = gen
         self._eval = make_eval_step(config, gen, device)
         self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
         self._stop = threading.Event()
@@ -68,6 +69,12 @@ class PoseTransferServer:
     @property
     def config(self):
         return self._config
+
+    @property
+    def gen(self) -> torch.nn.Module:
+        """The generator the server runs (read only: the batcher thread
+        uses it)."""
+        return self._gen
 
     # ------------------------------------------------------------- requests
 

@@ -17,7 +17,17 @@ moved into place with ``os.replace``:
 - ``disc_*.pt``: the discriminator's state_dict and ``optimizer``.
 
 No parameter name lacks a dot, so the three extra keys cannot collide with
-one. ``save(..., block=False)`` copies the state to host memory first, on
+one.
+
+The JAX package's checkpoints, ``gen_{epoch:03d}.msgpack`` (params, optax
+Adam state, step, rng) and ``disc_{epoch:03d}.msgpack`` (params, Adam
+state), are read too (``utils.flax_msgpack``, ``models.import_flax``): a
+directory that holds ``.pt`` files resumes from them, one that holds only
+``.msgpack`` files from those. The JAX rng key cannot become a torch
+generator state, so such a resume reseeds the dropout generator from
+``seed`` and the step, and says so. Saves are always ``.pt``.
+
+``save(..., block=False)`` copies the state to host memory first, on
 the caller's thread (the next step updates the parameters in place), then
 writes on a background thread; ``wait_for_saves`` joins the writes and
 re-raises a failed one.
@@ -29,9 +39,14 @@ import os
 import threading
 import time
 
+import numpy as np
 import torch
 
+from ..models import import_flax
+from ..utils import flax_msgpack
+
 _EXTRA_KEYS = ("optimizer", "step", "rng")
+FORMATS = ("pt", "msgpack")     # the port's, then the JAX package's
 
 
 def get_model_list(dirname: str, key: str, ext: str = "pt"):
@@ -46,6 +61,22 @@ def get_model_list(dirname: str, key: str, ext: str = "pt"):
     if not models:
         return None
     return sorted(models)[-1]
+
+
+def latest(dirname: str, key: str):
+    """Latest checkpoint path for ``key``: of the port's ``.pt`` files
+    where there is one, else of the JAX package's ``.msgpack`` files, else
+    None."""
+    for ext in FORMATS:
+        path = get_model_list(dirname, key, ext)
+        if path is not None:
+            return path
+    return None
+
+
+def is_flax(path: str) -> bool:
+    """Whether ``path`` is one of the JAX package's msgpack files."""
+    return path.endswith(".msgpack")
 
 
 def parse_epoch(path: str) -> int:
@@ -150,22 +181,54 @@ def _load(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_raw(path: str) -> dict:
+    """A checkpoint file as a dict: the port's flat ``.pt`` dict, or the
+    JAX package's msgpack tree (``{'params', 'opt_state', ...}``)."""
+    return flax_msgpack.load(path) if is_flax(path) else _load(path)
+
+
+def _reseed(state, seed: int, path: str) -> None:
+    s = int(np.random.SeedSequence([seed, state.step]).generate_state(1)[0])
+    state.rng.manual_seed(s)
+    print(f"NOTE: {os.path.basename(path)} is a JAX checkpoint; its rng key "
+          f"does not carry over: the dropout generator is reseeded from "
+          f"seed {seed} and step {state.step}")
+
+
+def _load_net(path: str, net, opt) -> dict:
+    """Load one net and its optimizer from ``path`` (either format);
+    returns the blob."""
+    blob = load_raw(path)
+    if is_flax(path):
+        net.load_state_dict(import_flax.state_dict_from_flax(
+            net, blob["params"]))
+        opt.load_state_dict(import_flax.adam_state_dict_from_flax(
+            blob["opt_state"], net, opt))
+    else:
+        net.load_state_dict(_params(blob))
+        opt.load_state_dict(blob["optimizer"])
+    return blob
+
+
 def _params(blob: dict) -> dict:
     return {k: v for k, v in blob.items() if k not in _EXTRA_KEYS}
 
 
-def resume(state, save_dir: str, require_disc: bool = True):
+def resume(state, save_dir: str, require_disc: bool = True,
+           seed: int = 0):
     """Load the latest gen/disc pair into ``state`` (a ``TrainState``, in
-    place). Returns (state, epoch); epoch 1 when nothing is found."""
-    gen_path = get_model_list(save_dir, "gen")
+    place), from the port's ``.pt`` files or, where the directory holds
+    none, the JAX package's ``.msgpack`` files (the dropout generator then
+    reseeded from ``seed`` and the step). Returns (state, epoch); epoch 1
+    when nothing is found."""
+    gen_path = latest(save_dir, "gen")
     if gen_path is None:
         return state, 1
-    gen = _load(gen_path)
+    ext = gen_path.rsplit(".", 1)[1]
     epoch = parse_epoch(gen_path)
     print("Resume gen from epoch %d" % epoch)
 
-    disc_path = get_model_list(save_dir, "disc")
-    disc = None
+    disc_path = get_model_list(save_dir, "disc", ext)
     if disc_path is None or parse_epoch(disc_path) != epoch:
         # gen is written first, so a stopped save leaves gen_N beside
         # disc_{N-1}: pairing those, or starting over, would corrupt the
@@ -180,22 +243,26 @@ def resume(state, save_dir: str, require_disc: bool = True):
                 f"orphaned file")
         print(f"NOTE: disc checkpoint for epoch {epoch} missing "
               f"(found: {have}); loading generator only")
-    else:
-        disc = _load(disc_path)
-    state.gen.load_state_dict(_params(gen))
-    state.gen_opt.load_state_dict(gen["optimizer"])
+        disc_path = None
+    gen = _load_net(gen_path, state.gen, state.gen_opt)
     state.step = int(gen["step"])
-    state.rng.set_state(gen["rng"])
-    if disc is not None:
-        state.disc.load_state_dict(_params(disc))
-        state.disc_opt.load_state_dict(disc["optimizer"])
+    if is_flax(gen_path):
+        _reseed(state, seed, gen_path)
+    else:
+        state.rng.set_state(gen["rng"])
+    if disc_path is not None:
+        _load_net(disc_path, state.disc, state.disc_opt)
         print("Resume disc from epoch %d" % parse_epoch(disc_path))
     return state, epoch
 
 
 def load_params(path: str, template):
-    """Load one net's parameters from a checkpoint file (the port's, or a
-    reference state_dict) into the module ``template``; the optimizer
-    state stored beside them is ignored. Returns ``template``."""
-    template.load_state_dict(_params(_load(path)))
+    """Load one net's parameters from a checkpoint file (the port's, a
+    reference state_dict, or the JAX package's msgpack) into the module
+    ``template``; the optimizer state stored beside them is ignored.
+    Returns ``template``."""
+    blob = load_raw(path)
+    sd = import_flax.state_dict_from_flax(template, blob["params"]) \
+        if is_flax(path) else _params(blob)
+    template.load_state_dict(sd)
     return template

@@ -66,7 +66,8 @@ class GANConfig:
     # shape qualifies) | 'xla' (gather/compare/scatter per part window)
     warp_place: str = "auto"
     # 'matmul' (two-pass banded products) | 'pallas' (the fused two-pass
-    # warp fold, ops/warp_pallas.py); 'exact' is not ported and raises
+    # warp fold, ops/warp_pallas.py) | 'exact' (gather bilinear,
+    # ops.warp.warp_feature_single)
     warp_backend: str = "matmul"
     gen_type: str = "baseline"     # 'baseline' | 'stacked' | 'unet'
     num_stacks: int = 4            # stages of the stacked generator
@@ -156,7 +157,7 @@ def build_models(config: GANConfig, seed: int = 0,
     """The generator of ``config.gen_type`` (``check_mode``: the tiny
     ladders), initialised from ``seed`` (``weight_init``), in eval mode on
     ``device`` (default ``cuda``); the deformable fold windowed by
-    ``auto_windowed``. ``warp_backend='exact'`` raises NotImplementedError.
+    ``auto_windowed``.
     """
     device = resolve_device(device)
     enc, dec = config.filters

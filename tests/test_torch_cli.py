@@ -135,7 +135,6 @@ def test_profile_steps_write_a_trace(market_data):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--warp_backend", "exact", "item 8"),
     ("--num_devices", "2", "item 10"),
 ])
 def test_unported_flags_raise(market_data, flag, value, item):

@@ -205,7 +205,7 @@ def test_create_state_holds_a_frozen_vgg():
     cfg = engine.GANConfig(image_size=SIZE, batch_size=N, check_mode=True,
                            **RECIPE)
     st = engine.create_state(cfg, device="cpu")
-    ref = tvgg.random_vgg19_features(0)
+    ref = tvgg.random_vgg19_features(0, device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(st.vgg.state_dict().values(), ref.state_dict().values()))
     assert not any(p.requires_grad for p in st.vgg.parameters())
@@ -214,7 +214,7 @@ def test_create_state_holds_a_frozen_vgg():
     assert not in_opt & {id(p) for p in st.vgg.parameters()}
     gen_blob, disc_blob = checkpoint._snapshot(st)
     assert not any(k.startswith("features") for k in (*gen_blob, *disc_blob))
-    given = tvgg.random_vgg19_features(3)
+    given = tvgg.random_vgg19_features(3, device="cpu")
     assert engine.create_state(cfg, device="cpu", vgg=given).vgg is given
     l1 = engine.create_state(dataclasses.replace(
         cfg, content_loss_layer="none"), device="cpu")

@@ -95,8 +95,8 @@ def test_extract_features_matches_jax(vgg_file, layer, mode):
     a, _ = _imgs(2, (2, 32, 24, 3))
     jp = jvgg.load_torch_vgg19_features(vgg_file)
     want = np.asarray(jvgg.extract_named(jp, jnp.asarray(a), layer, mode))
-    got = tvgg.extract_named(tvgg.load_torch_vgg19_features(vgg_file),
-                             torch.tensor(a), layer, mode)
+    vgg = tvgg.load_torch_vgg19_features(vgg_file, "cpu")
+    got = tvgg.extract_named(vgg, torch.tensor(a), layer, mode)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=FEAT_REL * np.abs(want).max())
@@ -118,9 +118,9 @@ def test_vgg_state_dict_from_flax_carries_jax_random_stack():
     got = tvgg.extract_features(vgg, torch.tensor(a), 8).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=FEAT_REL * np.abs(want).max())
-    mine = tvgg.random_vgg19_features(0)
-    assert torch.equal(mine.features[0].weight,
-                       tvgg.random_vgg19_features(0).features[0].weight)
+    mine = tvgg.random_vgg19_features(0, device="cpu")
+    assert torch.equal(mine.features[0].weight, tvgg.random_vgg19_features(
+        0, device="cpu").features[0].weight)
     assert {k: v.shape for k, v in mine.state_dict().items()} == \
         {k: v.shape for k, v in vgg.state_dict().items()}
 

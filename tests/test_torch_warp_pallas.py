@@ -318,17 +318,6 @@ def test_layer_matches_jax(case, jax_interpret):
     assert np.abs(np.asarray(ref_df)).max() > 0.5
 
 
-def test_layer_rejects_exact_backend():
-    f, warps, masks, img = _layer_inputs("pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twarp.affine_transform_layer(torch.tensor(f), torch.tensor(warps),
-                                     torch.tensor(masks), img,
-                                     backend="exact")
-    with pytest.raises(ValueError):
-        twarp.plan_folds([f.shape], torch.tensor(warps), None,
-                         torch.float32, "full", backend="gather")
-
-
 # ------------------------------------------------- generator and train step
 
 SIZE = (128, 128)
@@ -662,15 +651,6 @@ def test_generator_gradient_gap_is_jax_cpu_norm_sums(glorot_case):
     assert max(_rel_diffs(r["jax_blocked"], r["f32"]).values()) <= 1e-4
     assert max(_rel_diffs(r["f64_ulp"], r["f64"]).values()) <= 1e-4
     assert max(_rel_diffs(r["f64_1e-5"], r["f64"]).values()) > 1e-3
-
-
-def test_gan_config_rejects_exact_backend():
-    cfg = engine.GANConfig(warp_backend="exact")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.build_models(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.create_state(cfg, device="cpu")
-    assert engine.GANConfig().warp_backend == "matmul"
 
 
 # ------------------------------------------------------ kernels on the card
