@@ -17,7 +17,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               part) pairs they counted as skipped; with --baseline DIR
               also another checkout's two kernels, timed in turns with
               these; with --ablate on ablated inputs too; fold_place_stream
-              over 9 parts in groups of 3 at the windowed stages
+              over 9 parts in groups of 3 at the windowed stages;
+              fold_place and fold_route also at h36m's 224² stage (4 parts,
+              zero_nb all ones)
   4. serve    the full-width fashion-256 deformable generator (bf16, seeded
               random weights) behind PoseTransferServer: two full batches
               of 8 and a padded partial batch of 3; outputs checked, fold
@@ -111,7 +113,32 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               discriminator's weights as Keras-order layer lists through
               import_generator_keras / import_discriminator_keras, forwards
               bit for bit those of the modules they came from
- 17. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
+ 17. chunked  the fold's memory chunking (fashion-256, bf16, 'matmul'): the
+              stage-0 kernel-placed fold at b32, forward and gradient, under
+              the default PT_WARP_PLACE_CHUNK_MB (one call), a 512 MB cap
+              (chunks 9, 9, 9, 5) and PT_WARP_JOINT_GROUP=3, held to the
+              one-call fold (tolerances stated at CHUNK_SETTINGS), one
+              fold_place / fold_route launch per chunk, ms and peak memory
+              each (tools/bench_fold.py's batchchunk experiment); 2 training
+              steps at b64 (stage 0 in chunks of 54 and 10) and at b32:
+              losses finite, nets moved, one launch per chunk of every fold
+              instance (the chunks per stage stated at CHUNK_TRAIN_WANT),
+              ms and peak memory
+ 18. data_parallel fashion-256 at full width, bf16, global batch 16, 2
+              steps, dropout on: (a) one process; (b) 2 spawned ranks on
+              the card over gloo (CUDA tensors), both ranks' nets bitwise
+              equal, every phase's all-reduced gradients and every step's
+              losses held to (a)'s (DP_GRAD_RTOL, DP_LOSS_TOL), the nets
+              within JAX's mesh-test tolerance; (c) 1 rank over NCCL in
+              this process, held to (a) the same way, with the
+              all-reduce's ms a step; (d) cli.main --device cuda:0
+              --num_devices 2 (1 epoch of 2 iterations, a display, a
+              checkpoint written by rank 0 alone), then --resume 1 on one
+              device; (e) PoseTransferServer with 2 replicas on the card
+              against one, within the serving limits. Launches counted in
+              every part; the ranks are joined with a time limit; no time
+              here is a scaling result (one card)
+ 19. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
      random set, as since their first port; ms_main, plain_ms_main and
      bound_ms_main on a training step's own inputs; launches summed over
      every path that drives them), then the last line
@@ -126,12 +153,15 @@ import argparse
 import concurrent.futures as cf
 import contextlib
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import io
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -164,6 +194,8 @@ from pose_transfer_torch.ops import nn_loss as nn_loss_mod
 from pose_transfer_torch.ops import warp as warp_mod
 from pose_transfer_torch.ops import warp_fused
 from pose_transfer_torch.ops import warp_pallas
+from pose_transfer_torch.parallel import dryrun
+from pose_transfer_torch.parallel import mesh as pmesh
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.data.synthetic import synthetic_compact_batch
 from pose_transfer_torch.tools import bench_fold, profile_serve
@@ -184,6 +216,13 @@ TRAIN_STEPS = 3
 # (H = W, C, SY, SX) for skips 256²×64, 128²×128, 64²×256; P = 9 parts
 STAGES = ((256, 64, 128, 144), (128, 128, 64, 80), (64, 256, 32, 48))
 BATCH, PARTS = 8, 9
+# h36m-224's kernel-placed stage: 224²×64, windows 112 × 128, the 4 parts
+# that pose_dim 16 leaves active, zero_nb all ones (static-empty parts)
+H36M_PLACE_STAGE, H36M_PARTS = (224, 64, 112, 128), 4
+# phase 3's fold_place / fold_route shapes: (stage, P, zero_nb all ones,
+# dataset); the kernels line sums fashion's, as since the first port
+PLACE_SHAPES = tuple((st, PARTS, False, "fasion") for st in STAGES) \
+    + ((H36M_PLACE_STAGE, H36M_PARTS, True, "h36m"),)
 STREAM_PG = 3                 # parts per fold_place_stream group (phase 3)
 # phase 7: the fold microbenchmark at fashion-256 stage 0
 STREAM_BATCH, STREAM_GROUPS = 32, (3, 9)
@@ -297,11 +336,13 @@ def time_cuda(fn, iters: int, flush: torch.Tensor | None = None) -> float:
     return sum(s.elapsed_time(e) for s, e in spans) / iters
 
 
-def place_inputs(h, c, sy, sx, dtype, gen):
+def place_inputs(h, c, sy, sx, dtype, gen, p=PARTS, zero_all=False):
     """fold_place inputs: negatives in the body, zeros and fractions in the
-    mask windows, x0 ≡ 0 mod 16, exact ties (part 2 repeats part 1)."""
+    mask windows, x0 ≡ 0 mod 16, exact ties (part 2 repeats part 1);
+    ``p`` placed parts; ``zero_all``: zero_nb all ones, as where some parts
+    are static-empty (h36m)."""
     dev = "cuda"
-    n, p, w = BATCH, PARTS, h
+    n, w = BATCH, h
     body = torch.randn((n, h, w, c), generator=gen, device=dev).to(dtype)
     wins = torch.randn((n, p, sy, sx, c), generator=gen, device=dev)
     levels = torch.tensor([0.0, 0.25, 0.5, 1.0], device=dev)
@@ -315,24 +356,26 @@ def place_inputs(h, c, sy, sx, dtype, gen):
     parts = torch.arange(1, p + 1, device=dev).expand(n, p)
     offs = torch.stack([y0, x0, parts], -1).to(torch.int32).contiguous()
     zero_nb = torch.rand((n, h, w), generator=gen, device=dev) < 0.5
+    if zero_all:
+        zero_nb = torch.ones_like(zero_nb)
     return (body.contiguous(), wins.to(dtype).contiguous(),
             mwins.to(dtype).contiguous(), zero_nb, offs)
 
 
-def place_bytes(h, c, sy, sx, itemsize, emit_idx) -> int:
-    n, p = BATCH, PARTS
+def place_bytes(h, c, sy, sx, itemsize, emit_idx, p=PARTS) -> int:
+    n = BATCH
     b = itemsize * (2 * n * h * h * c + n * p * sy * sx * c + n * p * sy * sx)
     b += n * h * h + n * p * 3 * 4                  # zero_nb, offs
     return b + (n * h * h * c if emit_idx else 0)    # int8 idx
 
 
-def route_inputs(h, c, sy, sx, dtype, gen):
+def route_inputs(h, c, sy, sx, dtype, gen, p=PARTS):
     """fold_route inputs: g with negatives, the mask windows and offsets of
     ``place_inputs`` (zeros among the mask values: signed zeros; two parts
     sharing a window), idx drawn from -1 (zero pass), 0 (body) and the
     parts, a body mask with zeros."""
-    g, _, mwins, _, offs = place_inputs(h, c, sy, sx, dtype, gen)
-    idx = torch.randint(-1, PARTS + 1, g.shape, generator=gen,
+    g, _, mwins, _, offs = place_inputs(h, c, sy, sx, dtype, gen, p)
+    idx = torch.randint(-1, p + 1, g.shape, generator=gen,
                         device="cuda").to(torch.int8)
     levels = torch.tensor([0.0, 0.5, 1.0], device="cuda")
     mask0 = levels[torch.randint(0, 3, (BATCH, h, h), generator=gen,
@@ -340,10 +383,10 @@ def route_inputs(h, c, sy, sx, dtype, gen):
     return g, idx, mask0, mwins, offs
 
 
-def route_bytes(h, c, sy, sx, itemsize) -> int:
+def route_bytes(h, c, sy, sx, itemsize, p=PARTS) -> int:
     """Least bytes of one fold_route: g read and gbody written, gwins
     written, the mask windows and the body mask read once; int8 idx; offs."""
-    n, p = BATCH, PARTS
+    n = BATCH
     return itemsize * (2 * n * h * h * c + n * p * sy * sx * c
                        + n * p * sy * sx + n * h * h) \
         + n * h * h * c + 12 * n * p
@@ -395,8 +438,8 @@ def phase_kernels(flush) -> dict:
                         (torch.float32, torch.int32)):
         dname = str(dtype).split(".")[-1]
         for emit_idx in (False, True):
-            for h, c, sy, sx in STAGES:
-                args = place_inputs(h, c, sy, sx, dtype, gen)
+            for (h, c, sy, sx), p, zero_all, dataset in PLACE_SHAPES:
+                args = place_inputs(h, c, sy, sx, dtype, gen, p, zero_all)
                 ref, ref_idx = warp_fused.fold_place_reference(
                     *args, emit_idx=emit_idx)
                 out, idx = warp_fused.fold_place(*args, emit_idx=emit_idx)
@@ -413,19 +456,22 @@ def phase_kernels(flush) -> dict:
                     *args, emit_idx=emit_idx), 3, flush)
                 # operations: one multiply and one compare per window element
                 res = {"ms": ms, "plain_ms": plain_ms, **_bound(
-                    place_bytes(h, c, sy, sx, out.element_size(), emit_idx),
-                    2 * BATCH * PARTS * sy * sx * c)}
+                    place_bytes(h, c, sy, sx, out.element_size(), emit_idx,
+                                p),
+                    2 * BATCH * p * sy * sx * c)}
                 emit({"phase": "kernel", "name": "fold_place", "dtype": dname,
-                      "emit_idx": emit_idx,
+                      "emit_idx": emit_idx, "dataset": dataset,
                       "shape": {"N": BATCH, "H": h, "W": h, "C": c,
-                                "P": PARTS, "SY": sy, "SX": sx},
+                                "P": p, "SY": sy, "SX": sx},
+                      "zero_nb_all_ones": zero_all,
                       "bitwise_equal": same, "max_abs_err": err, **res})
                 m = main["fold_place"]
                 m["max_abs_err"] = max(m["max_abs_err"], err)
-                if dtype == torch.bfloat16 and not emit_idx:
+                if dtype == torch.bfloat16 and not emit_idx \
+                        and dataset == "fasion":
                     _add(m, res)
-        for h, c, sy, sx in STAGES:
-            args = route_inputs(h, c, sy, sx, dtype, gen)
+        for (h, c, sy, sx), p, _, dataset in PLACE_SHAPES:
+            args = route_inputs(h, c, sy, sx, dtype, gen, p)
             ref = warp_fused.fold_route_reference(*args)
             out = warp_fused.fold_route(*args)
             torch.cuda.synchronize()
@@ -439,15 +485,16 @@ def phase_kernels(flush) -> dict:
                 lambda: warp_fused.fold_route_reference(*args), 3, flush)
             # operations: one compare and one multiply per output element
             res = {"ms": ms, "plain_ms": plain_ms, **_bound(
-                route_bytes(h, c, sy, sx, out[0].element_size()),
-                2 * BATCH * (PARTS * sy * sx + h * h) * c)}
+                route_bytes(h, c, sy, sx, out[0].element_size(), p),
+                2 * BATCH * (p * sy * sx + h * h) * c)}
             emit({"phase": "kernel", "name": "fold_route", "dtype": dname,
-                  "shape": {"N": BATCH, "H": h, "W": h, "C": c, "P": PARTS,
+                  "dataset": dataset,
+                  "shape": {"N": BATCH, "H": h, "W": h, "C": c, "P": p,
                             "SY": sy, "SX": sx},
                   "bitwise_equal": same, "max_abs_err": err, **res})
             m = main["fold_route"]
             m["max_abs_err"] = max(m["max_abs_err"], err)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and dataset == "fasion":
                 _add(m, res)
         for with_idx in (False, True):
             for h, c, sy, sx in STAGES:
@@ -920,12 +967,13 @@ def _fashion(backend="matmul", **kw) -> GANConfig:
                      compute_dtype=torch.bfloat16, warp_backend=backend, **kw)
 
 
-def _steps(cfg: GANConfig, steps: int, seed: int) -> dict:
+def _steps(cfg: GANConfig, steps: int, seed: int, on_timed=None) -> dict:
     """``create_state`` and ``make_train_step`` for ``cfg``: one warm-up
     and ``steps`` steps on synthetic batches, the fold kernels counted over
-    the timed steps. Checks the losses finite and every parameter of both
-    nets moved; returns the state, the last step's output and gen batch,
-    and the readings."""
+    the timed steps (``on_timed()`` is called where the counts are zeroed).
+    Checks the losses finite and every parameter of both nets moved;
+    returns the state, the last step's output and gen batch, and the
+    readings."""
     state = create_state(cfg, seed=0, device="cuda")
     step = make_train_step(cfg, state)
     rng = np.random.default_rng(seed)
@@ -943,6 +991,8 @@ def _steps(cfg: GANConfig, steps: int, seed: int) -> dict:
     before = [p.detach().clone() for p in nets]
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    if on_timed is not None:
+        on_timed()
     t0 = time.perf_counter()
     results = [step(*b) for b in batches[1:]]
     torch.cuda.synchronize()
@@ -2128,6 +2178,379 @@ def phase_keras(card: str) -> None:
         "forwards_bitwise": True})
 
 
+# ------------------------------------------ the fold's chunking, data-parallel
+
+# phase 17 (chunked): fashion-256 stage 0, bf16, the kernel-placed fold at
+# b32 under the default cap (one call), a 512 MB cap (chunks of 9 and a tail
+# of 5) and part groups of 3; the step at b64 (stage 0 chunks 54 + 10 under
+# the default 3072 MB: 56.25 MB a sample by JAX's estimate) beside one at
+# b32. With part groups, each group's windowed warps and transposed warps
+# are separate GEMMs: cuBLAS may tile a smaller GEMM otherwise (a bf16
+# rounding of a window element may flip), and the groups' f32 gradients are
+# added in group order (the f32 sum reassociates; a bf16 rounding of the
+# gradient may flip). So with groups the output is held within one bf16 ulp
+# of each element's magnitude (a flipped window rounding moves a maximum by
+# at most that), the gradient as this script holds fold gradients: all but
+# GRAD_FLIP_SHARE of its elements within BWD_BF16_ULPS ulps (a near-tie
+# that the flip crowns otherwise routes a pixel's cotangent to another
+# part). Batch chunks run the same per-sample work, and are held bit for
+# bit; where cuBLAS tiles another batch count otherwise the same
+# tolerances apply and the line says so.
+CHUNK_BATCH, CHUNK_TRAIN_BATCHES, CHUNK_STEPS = 32, (64, 32), 2
+CHUNK_SETTINGS = (
+    {"PT_WARP_PLACE_CHUNK_MB": None, "PT_WARP_JOINT_GROUP": None},
+    {"PT_WARP_PLACE_CHUNK_MB": "512", "PT_WARP_JOINT_GROUP": None},
+    {"PT_WARP_PLACE_CHUNK_MB": None, "PT_WARP_JOINT_GROUP": "3"})
+CHUNK_WANT = ([32], [9, 9, 9, 5], [32])
+# the training steps' chunks per stage (256², 128², 64²) under the default
+# cap of 3072 MiB, by JAX's estimate p·s_y·(w + s_x)·c·2 bytes a sample
+# with the 9 active parts: 56.25, 29.25 and 15.75 MiB, so only stage 0 at
+# b64 splits (54 + 10). A step launches fold_place twice per chunk (the
+# disc phase's forward, the gen phase's with its argmax), fold_place_idx
+# and fold_route once
+CHUNK_TRAIN_WANT = {64: ((54, 10), (64,), (64,)),
+                    32: ((32,), (32,), (32,))}
+# phase 18 (data_parallel): fashion-256, bf16, global batch 16, 2 steps,
+# dropout on. The nets after each step against the single process's: JAX's
+# mesh-test tolerance (tests/test_parallel.py:69-76), rtol 2e-3 and atol
+# one Adam update quantum 2·lr (+ 2.5 %) per step. A near-zero gradient
+# whose sign differs between the runs moves its parameter in the other
+# direction: a rank rounds its half-batch's bf16 weight gradient before
+# the all-reduce, one device the whole batch's, so in bf16 such flips are
+# common (measured on an H100: 449 461 of 85 M elements beyond one quantum
+# after 2 steps). Adam's first step is ±lr·g/(|g| + ε), its second from
+# these betas at most 1.054·lr (the largest |m̂2|/√v̂2 over g2/g1): after
+# 2 steps the runs may differ by 2·lr·2.054, and the bound after step k
+# sums the quanta of steps 1..k. That bound holds whatever the gradients
+# are, so the runs are held where they can differ: the gradients each
+# phase hands its optimizer (the all-reduced ones against one process's
+# on the global batch, dryrun.grad_errors: the 2-norm of the difference
+# over the net's, and the worst such ratio of a tensor holding at least
+# 1e-3 of the net's norm) and the losses of every step. Measured on an
+# H100 for 2 gloo ranks: 4.5e-3-1.87e-2 over the net, 0.011-0.195 for the
+# worst tensor (both largest in step 2's gen phase), losses within 1.04e-3;
+# one NCCL rank 0. A wrong all-reduce (no sum, no division by the ranks)
+# or wrong dropout rows give 0.4-1.0 over the net
+DP_BATCH, DP_STEPS = 16, 2
+DP_PARAM_RTOL = 2e-3
+DP_PARAM_ATOL = (4.1e-4, 4.1e-4 * 2.054)        # after step 1, step 2
+DP_GRAD_RTOL, DP_GRAD_RTOL_TENSOR = 1e-1, 5e-1
+DP_LOSS_TOL = dict(rtol=2e-3, atol=4e-3)
+DP_RANK_TIMEOUT_S = 600
+
+
+def _chunk_grad_ok(out, grad, ref_out, ref_grad):
+    """(bitwise, within tolerance) of a chunked or grouped fold against the
+    one-call fold (the tolerances of CHUNK_SETTINGS' note)."""
+    bitwise = torch.equal(out, ref_out) and torch.equal(grad, ref_grad)
+    d_out = (out.float() - ref_out.float()).abs()
+    d_grad = (grad.float() - ref_grad.float()).abs()
+    out_ok = bool(_bf16_within(d_out, ref_out.float(), 1).all())
+    over = int((~_bf16_within(d_grad, ref_grad.float(), BWD_BF16_ULPS))
+               .sum().item())
+    within = out_ok and over <= GRAD_FLIP_SHARE * d_grad.numel()
+    return bitwise, within, over
+
+
+def phase_chunked(card: str) -> dict:
+    """The fold's memory chunking at full width; returns its launches."""
+    dev = torch.device("cuda")
+    image = (256, 256)
+    feats, warps, masks = bench_fold._fold_inputs(
+        CHUNK_BATCH, image, 18, 0, torch.bfloat16, dev)
+    _reset_counts()
+    lines, results = bench_fold.batchchunk(
+        feats, warps, masks, image, list(CHUNK_SETTINGS), BENCH_ITERS,
+        BENCH_WARMUP)
+    launches = _counts()
+    ref_out, ref_grad = results[0]
+    grads = [ln for ln in lines if ln["mode"] == "grad"]
+    for i, (setting, want) in enumerate(zip(CHUNK_SETTINGS, CHUNK_WANT)):
+        pair = [ln for ln in lines if ln["setting"] == setting]
+        check(all(ln["chunks"] == want for ln in pair),
+              f"{setting}: chunks {pair[0]['chunks']} != {want}")
+        for ln in pair:
+            grad_mode = ln["mode"] == "grad"
+            check(ln["launches"] == {"fold_place": len(want),
+                                     "fold_route": len(want) * grad_mode,
+                                     "scan_fallback": 0},
+                  f"{setting} {ln['mode']}: launches {ln['launches']}")
+        bitwise, within, over = _chunk_grad_ok(*results[i], ref_out,
+                                               ref_grad)
+        grouped = setting["PT_WARP_JOINT_GROUP"] is not None
+        emit({**{k: v for k, v in grads[i].items() if k != "setting"},
+              "phase": "chunked_fold", "setting": setting, "card": card,
+              "fwd_ms": pair[0]["ms"], "fwd_temp_hbm_gb":
+              pair[0]["temp_hbm_gb"], "bitwise_equal": bitwise,
+              "grad_elements_over_tol": over,
+              "within_tolerance": within, "tolerance":
+              "bitwise expected" if not grouped else "grouped GEMMs"})
+        check(bitwise or within, f"{setting}: chunked fold != one call")
+    del results, ref_out, ref_grad, feats
+
+    # the training step at b64 under the default cap, beside b32: every
+    # kernel-placed fold instance launches once per chunk
+    out = {}
+    for batch in CHUNK_TRAIN_BATCHES:
+        cfg = dataclasses.replace(_fashion(), batch_size=batch)
+        run = _steps(cfg, CHUNK_STEPS, seed=9)
+        counts = run["counts"]
+        chunks = sum(len(st) for st in CHUNK_TRAIN_WANT[batch])
+        want = {"fold_place": 2 * chunks * CHUNK_STEPS,
+                "fold_place_idx": chunks * CHUNK_STEPS,
+                "fold_route": chunks * CHUNK_STEPS, "scan_fallback": 0}
+        got = {k: counts[k] for k in want}
+        check(got == want, f"b{batch}: launches {got} != one per chunk "
+              f"{want}")
+        emit({"phase": "chunked_train", "card": card, "batch": batch,
+              "dtype": "bfloat16", "steps": CHUNK_STEPS,
+              "chunks_by_stage": CHUNK_TRAIN_WANT[batch],
+              "losses": {"gen [total, ll, ad]": run["rows"]["gen"],
+                         "disc [total, true, fake]": run["rows"]["disc"]},
+              "fold_place_launches": counts["fold_place"],
+              "fold_place_idx_launches": counts["fold_place_idx"],
+              "fold_route_launches": counts["fold_route"],
+              "scan_fallbacks": counts["scan_fallback"],
+              "step_ms": run["step_ms"],
+              "peak_mem_gb": run["peak_mem_gb"]})
+        out[batch] = counts
+        del run
+        torch.cuda.empty_cache()
+    return {k: launches[k] + sum(c[k] for c in out.values())
+            for k in launches}
+
+
+def _dp_batches(cfg: GANConfig, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+
+    def draw():
+        return synthetic_compact_batch(rng, cfg.batch_size, cfg.image_size,
+                                       cfg.pose_dim)
+    return [(_stacked(draw()), _stacked(draw()), draw())
+            for _ in range(DP_STEPS)]
+
+
+def _dp_compare(got: list, want: list) -> list:
+    """Per step: max |diff|, elements beyond the step's DP tolerance and
+    bitwise equality of two runs' nets (host snapshots {'gen': sd, 'disc':
+    sd} after each step)."""
+    rows = []
+    for atol, a, b in zip(DP_PARAM_ATOL, got, want):
+        worst, over, same = 0.0, 0, True
+        for net in ("gen", "disc"):
+            for k, w in b[net].items():
+                g = a[net][k]
+                d = (g.double() - w.double()).abs()
+                worst = max(worst, d.max().item())
+                over += int((d > atol + DP_PARAM_RTOL * w.double().abs())
+                            .sum().item())
+                same = same and torch.equal(g, w)
+        rows.append({"atol": atol, "max_abs_diff": worst,
+                     "elements_over_tol": over, "bitwise_equal": same})
+    return rows
+
+
+def _dp_hold(part: str, got: dict, grads_a: list, rows_a: list) -> dict:
+    """A data-parallel run's gradients (per phase) and losses (per step)
+    against the single process's; checks both, returns the readings."""
+    errs = dryrun.grad_errors(got["grads"], grads_a)
+    check(len(errs) == 2 * DP_STEPS, f"{part}: {len(errs)} phases logged")
+    check(all(e["rel"] <= DP_GRAD_RTOL and e["worst"] <= DP_GRAD_RTOL_TENSOR
+              for e in errs), f"{part}: gradients vs one process {errs}")
+    loss_ok = all(np.allclose(g[k], w[k], **DP_LOSS_TOL)
+                  for g, w in zip(got["metrics"], rows_a, strict=True)
+                  for k in w)
+    check(loss_ok, f"{part}: losses {got['metrics']} vs {rows_a}")
+    return {"grads_vs_single_process_by_phase": errs,
+            "grad_rtol": [DP_GRAD_RTOL, DP_GRAD_RTOL_TENSOR],
+            "losses_within": DP_LOSS_TOL}
+
+
+def _sum_launches(*counts) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in KERNELS}
+
+
+def phase_data_parallel(card: str) -> dict:
+    """Data-parallel training and serving on the one card; returns the
+    launches of every part that ran in this process or in its ranks."""
+    note = ("one card: the ranks and replicas share it; no time here is "
+            "a scaling result")
+    cfg = dataclasses.replace(_fashion(), batch_size=DP_BATCH)
+    batches = _dp_batches(cfg, seed=11)
+    job = {"config": cfg, "batches": batches, "seed": 0, "snapshots": True,
+           "grads": True}
+
+    # (a) the reference: one process, b16
+    state = create_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg, state)
+    grads_a = dryrun.record_grads(step)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows, single = [], []
+    for b in batches:
+        m, _ = step(*b)
+        rows.append({k: v.tolist() for k, v in m.items()})
+        single.append(pmesh.unreplicate_state(state))
+    torch.cuda.synchronize()
+    ms_a = (time.perf_counter() - t0) / DP_STEPS * 1e3
+    launch_a = _counts()
+    check(all(np.isfinite(r[k]).all() for r in rows for k in r),
+          f"single-process losses {rows}")
+    emit({"phase": "data_parallel", "part": "a_single_process",
+          "card": card, "batch": DP_BATCH, "dtype": "bfloat16",
+          "steps": DP_STEPS, "losses": rows, "step_ms": ms_a,
+          "step_ms_includes": "the gradients' copies to the host",
+          "launches": {k: launch_a[k] for k in KERNELS}, "note": note})
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the one card over gloo, CUDA tensors
+    t0 = time.perf_counter()
+    ranks = dryrun.train_ranks([job], ["cuda:0", "cuda:0"], backend="gloo",
+                               timeout=DP_RANK_TIMEOUT_S)
+    secs_b = time.perf_counter() - t0
+    r0, r1 = ranks[0][0], ranks[1][0]
+    between = _dp_compare(r1["snapshots"], r0["snapshots"])
+    vs_single = _dp_compare(r0["snapshots"], single)
+    held_b = _dp_hold("two ranks", r0, grads_a, rows)
+    emit({"phase": "data_parallel", "part": "b_two_ranks_gloo",
+          "card": card, "backend": r0["backend"], "world": r0["world"],
+          "losses": r0["metrics"], **held_b, "ranks_bitwise_equal":
+          all(r["bitwise_equal"] for r in between),
+          "vs_single_process_by_step": vs_single, "rtol": DP_PARAM_RTOL,
+          "step_ms": [r["step_ms"] for r in (r0, r1)],
+          "allreduce_ms_per_step": [r["comm_ms"] / DP_STEPS
+                                    for r in (r0, r1)],
+          "peak_mem_gb": [r["peak_mem_gb"] for r in (r0, r1)],
+          "launches": [{k: r["launches"][k] for k in KERNELS}
+                       for r in (r0, r1)],
+          "seconds_with_spawn": secs_b, "note": note})
+    check(all(r["bitwise_equal"] for r in between),
+          "the two ranks' nets differ")
+    check(r0["metrics"] == r1["metrics"], "the ranks' metrics differ")
+    check(all(r["elements_over_tol"] == 0 for r in vs_single),
+          f"two ranks vs one process: {vs_single}")
+    check(all(r["launches"]["fold_place"] > 0
+              and r["launches"]["fold_route"] > 0 for r in (r0, r1)),
+          "a rank launched no fold kernel")
+
+    # (c) one rank over NCCL, in this process
+    tmp = tempfile.mkdtemp(prefix="dp_nccl_")
+    group = pmesh.init_group(0, 1, "cuda:0", os.path.join(tmp, "store"),
+                             "nccl")
+    try:
+        rc = dryrun.run_job(group, job)
+    finally:
+        pmesh.close_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    vs_a = _dp_compare(rc["snapshots"], single)
+    held_c = _dp_hold("one NCCL rank", rc, grads_a, rows)
+    emit({"phase": "data_parallel", "part": "c_one_rank_nccl",
+          "card": card, "backend": rc["backend"], "losses": rc["metrics"],
+          **held_c,
+          "vs_single_process_by_step": vs_a, "rtol": DP_PARAM_RTOL,
+          "deterministic_algorithms": False,
+          "step_ms": rc["step_ms"],
+          "allreduce_ms_per_step": rc["comm_ms"] / DP_STEPS,
+          "peak_mem_gb": rc["peak_mem_gb"],
+          "launches": {k: rc["launches"][k] for k in KERNELS},
+          "note": note})
+    check(rc["backend"] == "nccl", "the rank did not run on NCCL")
+    check(all(r["elements_over_tol"] == 0 for r in vs_a),
+          f"one NCCL rank vs one process: {vs_a}")
+    del single, grads_a, r0["grads"], rc["grads"]
+
+    # (d) cli.main over two ranks on the card, its files resumed on one
+    launch_d = _dp_cli(card, note)
+
+    # (e) the server with two replicas on the card against one
+    cfg8 = _fashion()
+    gen = build_models(cfg8, seed=0, device="cuda")
+    reqs = make_requests(np.random.default_rng(12), BATCH, (256, 256))
+    with PoseTransferServer(cfg8, gen, max_wait_ms=200.0) as srv:
+        srv.generate(reqs)                              # warm-up
+        want = srv.generate(reqs)
+    with PoseTransferServer(pmesh.config_for_mesh(cfg8, 2), gen,
+                            devices=["cuda:0", "cuda:0"],
+                            max_wait_ms=200.0) as srv:
+        srv.generate(reqs)                              # warm-up
+        srv.reset_stats()
+        _reset_counts()
+        got = srv.generate(reqs)
+        stats = srv.stats()
+        launch_e = _counts()
+    check_images(got, BATCH, "two-replica server")
+    diff = np.abs(got - want)
+    forwards = 2 * stats["batches"]
+    emit({"phase": "data_parallel", "part": "e_server_two_replicas",
+          "card": card, "batch": BATCH, "replicas": 2,
+          "max_abs_diff": float(diff.max()),
+          "mean_abs_diff": float(diff.mean()),
+          "replica_forwards": forwards,
+          "launches": {k: launch_e[k] for k in KERNELS},
+          "scan_fallbacks": launch_e["scan_fallback"], "note": note})
+    check(diff.max() <= BF16_MAX_ABS and diff.mean() <= BF16_MEAN_ABS,
+          "two replicas vs one server")
+    check(launch_e["fold_place"] + launch_e["scan_fallback"]
+          == 3 * forwards and launch_e["fold_place"] > 0,
+          f"two-replica launches {launch_e}")
+    return _sum_launches(launch_a, r0["launches"], r1["launches"],
+                         rc["launches"], launch_d, launch_e)
+
+
+def _dp_cli(card: str, note: str) -> dict:
+    """cli.main --num_devices 2 on the one card (gloo ranks), one epoch of
+    2 iterations with a display and a checkpoint; then a single-device
+    --resume 1 on its files. Returns the launches of the resumed run (the
+    ranks' are counted in their processes)."""
+    tmp = tempfile.TemporaryDirectory(prefix="dp_cli_")
+    root = Path(tmp.name)
+    data = str(root / "data") + "/"
+    _cli(cli_data.main, ["--out", data, "--dataset", "fasion",
+                         "--pose_dim", "18"])
+    flags = ["--expID", "dp", "--data_Dir", data, "--dataset", "fasion",
+             "--pose_dim", "18", "--compute_dtype", "bfloat16",
+             "--batch_size", str(BATCH), "--iters_per_epoch", "2",
+             "--checkpoint_ratio", "1", "--display_ratio", "2",
+             "--checkMode", "0", "--exp_root", str(root / "exp")]
+    exp = root / "exp" / "dp"
+    out, secs = _cli(functools.partial(cli_main.main,
+                                       rank_timeout=DP_RANK_TIMEOUT_S),
+                     flags + ["--number_of_epochs", "1", "--device",
+                              "cuda:0", "--num_devices", "2"])
+    rows = [json.loads(ln) for ln in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    saved = sorted(p.name for p in (exp / "models").iterdir())
+    grids = {d: len(list((exp / "results" / d).iterdir()))
+             for d in ("train", "test")}
+    check("Data-parallel over 2 ranks: ['cuda:0', 'cuda:0']" in out,
+          "cli.main did not start 2 ranks")
+    check(len(rows) == 1 and all(math.isfinite(v) for k, v in
+                                 rows[0].items() if k not in ("epoch",
+                                                              "it")),
+          f"data-parallel metrics.jsonl {rows}")
+    check(saved == ["disc_001.pt", "gen_001.pt"], f"checkpoints {saved}")
+    check(grids == {"train": 1, "test": 1}, f"grids {grids}")
+    emit({"phase": "data_parallel", "part": "d_cli_two_ranks",
+          "card": card, "seconds": secs, "batch": BATCH,
+          "losses": rows, "checkpoints": saved, "grids": grids,
+          "launches": "counted in the ranks' processes, not here",
+          "note": note})
+    _reset_counts()
+    out, secs = _cli(cli_main.main, flags + [
+        "--number_of_epochs", "2", "--device", "cuda", "--num_devices", "1",
+        "--resume", "1"])
+    counts = _counts()
+    saved = sorted(p.name for p in (exp / "models").iterdir())
+    check("Resume gen from epoch 1" in out and "Epoch : 2" in out
+          and "gen_002.pt" in saved, "single-device resume of the files")
+    emit({"phase": "data_parallel", "part": "d_cli_resume_one_device",
+          "card": card, "seconds": secs, "checkpoints": saved,
+          "launches": {k: counts[k] for k in KERNELS}})
+    tmp.cleanup()
+    return counts
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                 "on one CUDA card (see the module's notes).")
@@ -2205,6 +2628,9 @@ def main(argv=None) -> int:
     tmp.cleanup()
     phase_exact(smi)
     phase_keras(smi)
+    # the fold's memory chunking; data-parallel training and serving
+    new_paths.append(phase_chunked(smi))
+    new_paths.append(phase_data_parallel(smi))
 
     def new(name):
         return sum(p[name] for p in new_paths)

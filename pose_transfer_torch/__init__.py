@@ -23,6 +23,8 @@ counterpart is found under the same name:
              training, inference grids, evaluation, the HTTP server
   utils/     PNG files, flax msgpack files, sample grids, parameter
              counts, pose helpers
+  parallel/  data-parallel training over spawned ranks (NCCL, gloo) and
+             inference over replicas in one process
   serve.py   static-shape micro-batching inference server
   tools/     device-time profiles of serving and training, the fold
              microbenchmark

@@ -11,7 +11,8 @@ The VGG weights come from ``--vgg_weights``, else the port's seeded random
 init (``models.vgg.random_vgg19_features(0)``).
 
 Run: ``python -m pose_transfer_torch.cli.evaluate --expID ... --resume 1
-[--max_batches N] [--feat_layer block1_conv2] [--device cpu]``
+[--max_batches N] [--feat_layer block1_conv2] [--device cpu]
+[--num_devices k]`` (k generator replicas, as ``cli.test``)
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def _metrics(a: torch.Tensor, b: torch.Tensor):
 def evaluate(opt, max_batches: int | None = None,
              feat_layer: str | None = None) -> dict:
     config, dataset, eval_step, epoch = inference_setup(opt)
-    device = torch.device(opt.device)
+    device = torch.device(opt.device)   # the outputs' (the first replica's)
     if feat_layer is None:
         feat_layer = getattr(opt, "feat_layer", "block1_conv2")
     vgg = None

@@ -24,6 +24,13 @@ The losses stay on the device as running sums and are fetched only when
 the loss line is printed. ``--profile_steps N`` traces N steps from the
 second one with ``torch.profiler`` into ``<saveDir>/trace``.
 
+``--num_devices k`` (``opts.mesh_from_opt``) trains data-parallel: the
+kernels are built once, then k spawned ranks (``parallel.spawn_ranks``)
+each run the loop on their rows of every global batch
+(``parallel.make_parallel_train_step``). Rank 0 prints, writes
+``metrics.jsonl``, saves the checkpoints and renders the grids, for which
+the ranks gather their rows; a rank that fails fails the command.
+
 Run: ``python -m pose_transfer_torch.cli.main --expID ... --data_Dir ...
 [--device cpu]``
 """
@@ -40,12 +47,13 @@ import torch
 
 from ..data.dataset import PoseTransferDataset
 from ..data.loader import sample_stream
+from ..parallel import mesh
 from ..train import checkpoint
 from ..train.engine import (batch_preparer, create_state, make_eval_step,
                             make_train_step, resolve_device)
 from ..utils.summary import count_params
 from ..utils.visualize import display, display_stacked, save_image
-from .opts import Opts, config_from_opt
+from .opts import Opts, config_from_opt, mesh_from_opt
 
 
 def _stack_batches(batches: list[dict]) -> dict:
@@ -63,14 +71,42 @@ def draw_step_batches(stream, training_ratio: int):
     return _stack_batches(fake), _stack_batches(real), gen_batch
 
 
-def main(argv=None):
+def main(argv=None, *, rank_timeout: float | None = None):
+    """``rank_timeout`` (s): with ``--num_devices`` > 1, fail the run if
+    the ranks have not ended by then (default: no limit)."""
     opt = Opts().parse(argv)
     print("Model options . .")
     for k, v in sorted(vars(opt).items()):
         print("  %s: %s" % (str(k), str(v)))
 
-    device = resolve_device(opt.device)
     config = config_from_opt(opt)
+    devices = mesh_from_opt(opt, config)
+    if devices is None:
+        train(opt, config, resolve_device(opt.device))
+        return
+    # device_count drives the auto warp_windowed rule (per-device batch)
+    config = mesh.config_for_mesh(config, devices)
+    print(f"Data-parallel over {len(devices)} ranks: {devices}")
+    sys.stdout.flush()
+    if any(d.startswith("cuda") for d in devices):
+        from .. import _build
+        _build.build_all()      # once, before the ranks load the kernels
+    # CPU ranks share the host's cores
+    threads = max(1, torch.get_num_threads() // len(devices)) \
+        if devices[0] == "cpu" else None
+    mesh.spawn_ranks(_rank_train, devices, (opt, config), threads=threads,
+                     timeout=rank_timeout)
+
+
+def _rank_train(group, opt, config) -> None:
+    if group.rank:
+        sys.stdout = open(os.devnull, "w")
+    train(opt, config, group.device, group)
+
+
+def train(opt, config, device, group=None) -> None:
+    """The training run of ``opt`` on ``device``; with ``group`` (a
+    ``parallel.ProcessGroup``) this rank's part of a data-parallel run."""
     dataset_train = PoseTransferDataset(vars(opt), "train")
     dataset_test = PoseTransferDataset(vars(opt), "test")
 
@@ -95,7 +131,13 @@ def main(argv=None):
         state, start_epoch = checkpoint.resume(state, opt.checkpoints_dir,
                                                seed=opt.seed)
 
-    train_step = make_train_step(config, state)
+    if group is None:
+        train_step = make_train_step(config, state)
+        rank, world = 0, 1
+    else:
+        mesh.replicate_state(state, group)
+        train_step = mesh.make_parallel_train_step(config, state, group)
+        rank, world = group.rank, group.world
     eval_step = make_eval_step(config, state.gen, device)
 
     # deterministic resume: skip the batches the completed epochs drew
@@ -104,17 +146,22 @@ def main(argv=None):
         * (2 * config.training_ratio + 1)
     stream_train = sample_stream(dataset_train, config.batch_size,
                                  seed=opt.seed, prefetch=bool(opt.prefetch),
-                                 device=device, skip_batches=skip)
+                                 device=device, skip_batches=skip,
+                                 rank=rank, world=world)
     stream_test = sample_stream(dataset_test, config.batch_size,
                                 seed=opt.seed + 1,
-                                prefetch=bool(opt.prefetch), device=device)
+                                prefetch=bool(opt.prefetch), device=device,
+                                rank=rank, world=world)
 
-    metrics_log = open(os.path.join(opt.saveDir, "metrics.jsonl"), "a")
+    metrics_log = open(os.path.join(opt.saveDir, "metrics.jsonl"), "a") \
+        if rank == 0 else None
     try:
         _train_epochs(opt, config, state, train_step, eval_step,
-                      stream_train, stream_test, metrics_log, start_epoch)
+                      stream_train, stream_test, metrics_log, start_epoch,
+                      group)
     finally:
-        metrics_log.close()
+        if metrics_log is not None:
+            metrics_log.close()
         for s in (stream_train, stream_test):
             s.close()
         # a checkpoint the caller believes saved must exist, or the run
@@ -137,9 +184,10 @@ def _warm_start_stacked(opt, state) -> None:
 
 
 def _train_epochs(opt, config, state, train_step, eval_step, stream_train,
-                  stream_test, metrics_log, start_epoch):
+                  stream_test, metrics_log, start_epoch, group=None):
     prepare = batch_preparer(config, next(state.gen.parameters()).device)
-    profile_remaining = opt.profile_steps
+    # the profiler traces rank 0's steps
+    profile_remaining = opt.profile_steps if metrics_log is not None else 0
     profiler = None
     for epoch in range(start_epoch, opt.number_of_epochs + 1):
         gen_sum = disc_sum = None
@@ -181,18 +229,21 @@ def _train_epochs(opt, config, state, train_step, eval_step, stream_train,
                           it / num_iterations, total, g_total, g_ad, g_ll,
                           d_total, d_true, d_fake, epoch, ips))
                 sys.stdout.flush()
-                metrics_log.write(json.dumps({
-                    "epoch": epoch, "it": it, "gen_total": g_total,
-                    "gen_ll": g_ll, "gen_ad": g_ad, "disc_total": d_total,
-                    "disc_true": d_true, "disc_fake": d_fake,
-                    "images_per_sec": round(ips, 2),
-                    "time": time.time()}) + "\n")
-                metrics_log.flush()
+                if metrics_log is not None:
+                    metrics_log.write(json.dumps({
+                        "epoch": epoch, "it": it, "gen_total": g_total,
+                        "gen_ll": g_ll, "gen_ad": g_ad,
+                        "disc_total": d_total, "disc_true": d_true,
+                        "disc_fake": d_fake,
+                        "images_per_sec": round(ips, 2),
+                        "time": time.time()}) + "\n")
+                    metrics_log.flush()
                 _save_samples(opt, config, prepare, gen_batch, out,
-                              eval_step, stream_test, epoch, it)
+                              eval_step, stream_test, epoch, it, group)
 
         if epoch % opt.checkpoint_ratio == 0:
-            checkpoint.save(state, opt.checkpoints_dir, epoch, block=False)
+            checkpoint.save(state, opt.checkpoints_dir, epoch, block=False,
+                            group=group)
     if profiler is not None and profile_remaining:
         _stop_profiler(profiler, opt.saveDir)     # fewer steps than asked
 
@@ -229,18 +280,33 @@ def sample_grid(config, prepared: dict, out) -> np.ndarray:
                            config.use_input_pose, config.pose_dim)
 
 
+def _gathered(config, prepared: dict, out, group):
+    """A data-parallel step's rows of the grid's inputs, gathered from every
+    rank in rank order (a collective); as given on one device."""
+    if group is None:
+        return prepared, out
+    keys = ("input", "target", "interpol_pose")
+    prepared = {k: mesh.gather_rows(prepared[k], group)
+                for k in keys if prepared.get(k) is not None}
+    dim = 1 if config.gen_type == "stacked" else 0
+    return prepared, mesh.gather_rows(out, group, dim)
+
+
 def _save_samples(opt, config, prepare, gen_batch, out, eval_step,
-                  stream_test, epoch, it):
+                  stream_test, epoch, it, group=None):
     """Train and test sample grids; ``out`` is the train step's generated
-    images of ``gen_batch``."""
+    images of ``gen_batch``; in a data-parallel run rank 0 writes them."""
     title = "epoch_{0}_{1}.png".format(str(epoch).zfill(3), str(it).zfill(5))
     with torch.no_grad():
         prepared = prepare(gen_batch)
-    save_image(os.path.join(opt.output_dir, "train", title),
-               sample_grid(config, prepared, out))
+    grids = [("train", *_gathered(config, prepared, out, group))]
     out_t, prepared_t = eval_step(next(stream_test))
-    save_image(os.path.join(opt.output_dir, "test", title),
-               sample_grid(config, prepared_t, out_t))
+    grids.append(("test", *_gathered(config, prepared_t, out_t, group)))
+    if group is not None and group.rank:
+        return
+    for split, prep, images in grids:
+        save_image(os.path.join(opt.output_dir, split, title),
+                   sample_grid(config, prep, images))
 
 
 if __name__ == "__main__":

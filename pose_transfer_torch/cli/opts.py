@@ -6,9 +6,13 @@ the dataset's image size and file paths, the ``opt.txt`` dump) and
 ``config_from_opt``. The port adds one flag, ``--device`` (default
 ``cuda``; ``cpu`` runs on the CPU, as the tests do).
 
-``--num_devices`` above 1 (data-parallel runs, not ported) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item rather than run
-something else; 0 and 1 run on one device.
+``--num_devices`` (``mesh_from_opt``, JAX's rules): 1 is one device; 0 all
+visible cards (one with ``--device cpu`` or a named card), falling back to
+one device with a warning where the batch does not divide; an explicit
+k > 1 raises where k devices are not there or the batch does not divide.
+``--device cuda`` puts rank or replica i on ``cuda:i``; ``--device cpu``
+or a named card (``cuda:0``) puts all k there, over gloo: the CPU dry run
+of the tests, or a check of the data-parallel path on one card.
 """
 
 from __future__ import annotations
@@ -87,8 +91,9 @@ class Opts:
         p.add_argument("--compute_dtype", default="float32",
                        choices=["float32", "bfloat16"])
         p.add_argument("--num_devices", default=0, type=int,
-                       help="data-parallel devices (0 = all visible; the "
-                            "port runs on one)")
+                       help="data-parallel devices (0 = all visible): "
+                            "ranks for training, replicas for test, "
+                            "evaluate and serve")
         p.add_argument("--prefetch", default=1, type=int,
                        help="device prefetch depth for the input pipeline")
         p.add_argument("--seed", default=0, type=int)
@@ -188,14 +193,55 @@ class Opts:
 
 
 def config_from_opt(opt):
-    """GANConfig from parsed opts (``--compute_dtype`` included); raises
-    ``NotImplementedError`` for ``--num_devices`` above 1."""
+    """GANConfig from parsed opts (``--compute_dtype`` included)."""
     from ..train.engine import GANConfig
 
-    if opt.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {opt.num_devices}: data-parallel runs are not "
-            "ported (ROADMAP.md §A item 10)")
-    print(f"Running on one device ({opt.device}); data-parallel runs "
-          "(--num_devices > 1) are not ported")
     return GANConfig.from_opt(opt)
+
+
+def mesh_from_opt(opt, config):
+    """The data-parallel devices of ``--num_devices`` (0 = all visible
+    devices), rank or replica i on entry i; None for one device.
+
+    JAX's ``mesh_from_opt`` rules: an *explicit* ``--num_devices > 1``
+    that cannot be honoured raises (a user who asked for k devices must not
+    silently train on one); the auto default (0) warns and falls back to
+    one device where the batch does not divide over the visible devices.
+    ``--device cuda`` counts the visible cards (``cuda:0`` ..
+    ``cuda:k-1``); ``--device cpu`` or a named card is one device, which an
+    explicit k > 1 shares among k ranks or replicas.
+    """
+    import sys
+
+    import torch
+
+    if opt.num_devices == 1:
+        return None
+    device = torch.device(opt.device)
+    explicit = opt.num_devices > 1
+    shared = device.type != "cuda" or device.index is not None
+    if shared:
+        avail = opt.num_devices if explicit else 1
+    else:
+        avail = torch.cuda.device_count()
+    n = opt.num_devices or avail
+    if n <= 1:
+        return None
+    if n > avail:
+        raise ValueError(
+            f"--num_devices {n} requested but only {avail} device(s) "
+            f"visible ({opt.device})")
+    if config.batch_size % n != 0:
+        if explicit:
+            raise ValueError(
+                f"batch_size {config.batch_size} does not divide over "
+                f"{n} devices; pick a batch size divisible by {n} "
+                f"or set --num_devices 1")
+        print(f"WARNING: batch_size {config.batch_size} does not divide "
+              f"over the {n} visible devices; training single-device "
+              f"(pass --num_devices {n} and a divisible batch size to "
+              f"scale out)", file=sys.stderr)
+        return None
+    if shared:
+        return [str(device)] * n
+    return [f"cuda:{i}" for i in range(n)]

@@ -20,7 +20,7 @@ handler threads only decode, submit and encode. The weights come from
 
   python -m pose_transfer_torch.cli.serve --expID <exp> --resume 1 \\
       --dataset fasion --pose_dim 18 [--serve_port 8710] [--max_wait_ms 5] \\
-      [--device cpu]
+      [--device cpu] [--num_devices k]
 """
 
 from __future__ import annotations
@@ -33,17 +33,23 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..parallel import mesh
 from ..serve import PoseTransferServer
 from ..train import checkpoint
 from ..train.engine import create_state, resolve_device
-from .opts import Opts, config_from_opt
+from .opts import Opts, config_from_opt, mesh_from_opt
 
 
 def build_server(opt) -> PoseTransferServer:
     """The uint8-answering server of ``opt``'s generator and weights, on
-    ``opt.device``."""
-    device = resolve_device(opt.device)
+    ``opt.device``; ``--num_devices k``: one replica per device, each
+    micro-batch split over them."""
     config = config_from_opt(opt)
+    devices = mesh_from_opt(opt, config)
+    if devices is not None:
+        # device_count drives the auto warp_windowed rule (per-device batch)
+        config = mesh.config_for_mesh(config, devices)
+    device = resolve_device(devices[0] if devices else opt.device)
     # the content loss is a training option: serving builds no VGG
     state = create_state(dataclasses.replace(config,
                                              content_loss_layer="none"),
@@ -55,7 +61,8 @@ def build_server(opt) -> PoseTransferServer:
                                          require_disc=False, seed=opt.seed)
         print(f"Serving epoch-{epoch} weights")
     return PoseTransferServer(config, state.gen, max_wait_ms=opt.max_wait_ms,
-                              output_dtype="uint8", device=device)
+                              output_dtype="uint8", device=device,
+                              devices=devices)
 
 
 class _Handler(BaseHTTPRequestHandler):

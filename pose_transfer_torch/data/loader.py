@@ -4,7 +4,10 @@ Counterpart of ``pose_transfer_tpu/data/loader.py``:
 
 - ``BatchStream`` is an infinite shuffled batch iterator with a seeded
   reshuffle per pass over the dataset; the same seed draws the same index
-  sequence as the JAX package's, ``seek_batches`` included.
+  sequence as the JAX package's, ``seek_batches`` included. A data-parallel
+  rank (``rank`` of ``world``) draws the same global batches and decodes
+  only its rows of each, so the ranks together see the single-device
+  run's batches.
 - Samples are assembled by a thread pool (image decode and least-squares
   fits are numpy and zlib, which release the GIL in their hot parts).
 - ``DevicePrefetcher`` keeps batches assembled ahead. On a CUDA device each
@@ -29,12 +32,19 @@ from .dataset import collate
 
 
 class BatchStream:
-    """Infinite shuffled batch iterator over a map-style dataset."""
+    """Infinite shuffled batch iterator over a map-style dataset: global
+    batches of ``batch_size``, of which this stream assembles rank
+    ``rank``'s ``batch_size // world`` rows."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
-                 seed: int = 0, num_threads: int = 8):
+                 seed: int = 0, num_threads: int = 8, rank: int = 0,
+                 world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"{world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
         self._idx_lock = threading.Lock()
@@ -54,7 +64,8 @@ class BatchStream:
         return self
 
     def next_indices(self) -> np.ndarray:
-        """Thread-safe draw of the next batch's sample indices."""
+        """Thread-safe draw of the next global batch; returns this rank's
+        rows of its sample indices."""
         with self._idx_lock:
             if self._pos + self.batch_size > len(self._order):
                 if self._pos > 0 or len(self._order) == 0:
@@ -62,7 +73,8 @@ class BatchStream:
                     self._reshuffle()
             idx = self._order[self._pos:self._pos + self.batch_size]
             self._pos += self.batch_size
-            return idx
+            m = self.batch_size // self.world
+            return idx[self.rank * m:(self.rank + 1) * m]
 
     def seek_batches(self, k: int) -> None:
         """Advance the shuffle state by ``k`` batch draws without
@@ -91,10 +103,12 @@ class DevicePrefetcher:
     """Background threads keeping batches of a ``BatchStream`` ahead on
     ``device``.
 
-    Each worker draws indices under the stream's lock, assembles in
-    parallel, and hands over a dict of tensors on ``device``. With
-    ``num_workers > 1`` the batch order across workers is not deterministic
-    (fine for shuffled training).
+    Each worker draws indices under the stream's lock, with the draw's
+    sequence number, assembles in parallel, and hands over a dict of
+    tensors on ``device``; the consumer takes the batches in draw order, so
+    that the order does not depend on which worker finishes first (the
+    ranks of a data-parallel run must take the same global batch at each
+    step).
     """
 
     def __init__(self, stream: BatchStream, device, *, buffer_size: int = 4,
@@ -108,6 +122,9 @@ class DevicePrefetcher:
         self._lock = threading.Lock()
         self._error = None
         self._live = num_workers
+        self._drawn = 0                 # sequence number of the next draw
+        self._next = 0                  # ... of the next batch handed out
+        self._ready: dict = {}
         self._threads = [threading.Thread(target=self._worker, daemon=True)
                          for _ in range(num_workers)]
         for t in self._threads:
@@ -129,8 +146,11 @@ class DevicePrefetcher:
         stream = torch.cuda.Stream(self._device) if self._cuda else None
         try:
             while not self._stop.is_set():
-                batch = self._it.assemble(self._it.next_indices())
-                item = self._to_device(batch, stream)
+                with self._lock:
+                    seq = self._drawn
+                    self._drawn += 1
+                    idx = self._it.next_indices()
+                item = (seq, self._to_device(self._it.assemble(idx), stream))
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.25)
@@ -149,12 +169,17 @@ class DevicePrefetcher:
         return self
 
     def __next__(self) -> dict:
-        item = self._q.get()
-        if item is None:
-            if self._error is not None:
+        while self._next not in self._ready:
+            if self._error is not None:   # its draw will never arrive
                 raise self._error
-            raise StopIteration
-        batch, done = item
+            item = self._q.get()
+            if item is None:
+                if self._error is not None:
+                    raise self._error
+                raise StopIteration
+            self._ready[item[0]] = item[1]
+        batch, done = self._ready.pop(self._next)
+        self._next += 1
         if done is not None:
             consumer = torch.cuda.current_stream(self._device)
             consumer.wait_event(done)
@@ -180,13 +205,15 @@ class DevicePrefetcher:
 
 def sample_stream(dataset, batch_size: int, *, seed: int = 0,
                   prefetch: bool = True, device="cuda", num_threads: int = 8,
-                  num_workers: int = 3, skip_batches: int = 0):
+                  num_workers: int = 3, skip_batches: int = 0, rank: int = 0,
+                  world: int = 1):
     """An infinite batch stream: numpy batches without ``prefetch``, else
     tensor batches on ``device`` kept ahead by a ``DevicePrefetcher``.
     ``skip_batches`` seeks the shuffle state before any worker draws
-    (``BatchStream.seek_batches``)."""
+    (``BatchStream.seek_batches``); ``rank`` of ``world``: this rank's rows
+    of each global batch of ``batch_size``."""
     stream = BatchStream(dataset, batch_size, seed=seed,
-                         num_threads=num_threads)
+                         num_threads=num_threads, rank=rank, world=world)
     if skip_batches:
         stream.seek_batches(skip_batches)
     if not prefetch:

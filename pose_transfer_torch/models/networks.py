@@ -90,19 +90,25 @@ class ChannelDropout(nn.Module):
     ``p``, kept ones scaled by 1/(1-p) — flax's ``Dropout(p,
     broadcast_dims=(1, 2))``. In training mode it draws from
     ``generator`` (the train step hands it the state's generator; None
-    means the global one). No parameters: state_dicts are unchanged."""
+    means the global one). ``shard`` = (rank, world): the data-parallel
+    step's rank r of k holds rows r·n..(r+1)·n of the global batch, so it
+    draws the global batch's (k·n, C) planes and keeps its rows, and k
+    ranks drop what one device drops. No parameters: state_dicts are
+    unchanged."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
         self.generator: torch.Generator | None = None
+        self.shard = (0, 1)
 
     def forward(self, x):          # x: NCHW
         if not self.training:
             return x
         n, c = x.shape[:2]
-        keep = torch.rand((n, c, 1, 1), generator=self.generator,
-                          device=x.device) >= self.p
+        rank, world = self.shard
+        keep = torch.rand((n * world, c, 1, 1), generator=self.generator,
+                          device=x.device)[rank * n:(rank + 1) * n] >= self.p
         return torch.where(keep, x / (1.0 - self.p),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -52,6 +52,16 @@ for 'avg') and recomputed in the backward (``torch.utils.checkpoint``, as
 the JAX package's ``jax.checkpoint``). It plans no windows and launches no
 kernel: the JAX package has no Pallas kernel for it.
 
+Two environment variables bound the kernel-placed fold's memory, as in the
+JAX package (``warp.py:436-553``, ``:870-1018``), and are read at every
+call (the JAX package reads them when it traces):
+- ``PT_WARP_PLACE_CHUNK_MB`` (default 3072): the batch runs through the
+  whole fold, forward and backward, in chunks of ``_place_batch_chunk``
+  samples, a smaller call for the remainder;
+- ``PT_WARP_JOINT_GROUP`` (default 0, no grouping): the windowed warps of
+  the parts run in groups of that many parts, forward (kernel-placed
+  fold) and backward (both windowed folds).
+
 Transforms are (T, 8) row-major first-8 of a 3×3 matrix acting on (x, y, 1),
 estimated at ``init_image_size``; translations are rescaled per feature
 resolution.
@@ -60,6 +70,7 @@ resolution.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -263,6 +274,30 @@ def _warp_win(features: torch.Tensor, warps: torch.Tensor,
     return torch.matmul(wx, tmp)
 
 
+def _joint_group() -> int:
+    """Parts per joint contraction group, forward (the kernel-placed
+    fold's windowed warps) and backward (the joint transposed warp), from
+    ``PT_WARP_JOINT_GROUP`` at each call: 0 (the default, and any value
+    below 1) means all parts in one contraction. JAX's ``_joint_group``."""
+    return max(0, int(os.environ.get("PT_WARP_JOINT_GROUP", "0") or 0))
+
+
+def _warp_win_joint(features: torch.Tensor, warps: torch.Tensor,
+                    y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int,
+                    init_image_size: tuple[int, int]) -> torch.Tensor:
+    """``_warp_win`` of all parts, or under ``PT_WARP_JOINT_GROUP`` one
+    ``_warp_win`` per group of parts, concatenated on the part axis (JAX's
+    ``_warp_batch_win_joint``)."""
+    p = warps.shape[1]
+    group = _joint_group() or p
+    if group >= p:
+        return _warp_win(features, warps, y0, x0, s_y, s_x, init_image_size)
+    return torch.cat([
+        _warp_win(features, warps[:, k:k + group], y0[:, k:k + group],
+                  x0[:, k:k + group], s_y, s_x, init_image_size)
+        for k in range(0, p, group)], dim=1)
+
+
 def _warp_full(features: torch.Tensor, warps: torch.Tensor,
                init_image_size: tuple[int, int]) -> torch.Tensor:
     """Full-map two-pass warp by per-sample (N, 8) transforms."""
@@ -284,10 +319,23 @@ def _warp_win_t(g_wins: torch.Tensor, warps: torch.Tensor,
     rounding). ``joint``: pass 2 contracts the (part, window row) axes
     together and returns f32 — JAX's ``_warp_batch_t_win_joint``; its
     operands are upcast, which is exact for bf16 values, so the sum is the
-    f32 accumulation of the bf16 products. Otherwise pass 2 rounds to the
-    cotangents' dtype too (``warp_feature_matmul_t``).
+    f32 accumulation of the bf16 products; under ``PT_WARP_JOINT_GROUP``
+    one such contraction per group of parts (``_joint_group``). Otherwise
+    pass 2 rounds to the cotangents' dtype too (``warp_feature_matmul_t``).
     """
     n, p, s_y, s_x, c = g_wins.shape
+    group = _joint_group() if joint else 0
+    if 0 < group < p:
+        # PT_WARP_JOINT_GROUP: one joint contraction per group of parts,
+        # the groups' f32 gradients added in group order, as JAX's
+        # ``_warp_batch_t_win_joint``
+        df = None
+        for k in range(0, p, group):
+            sl = slice(k, k + group)
+            dfk = _warp_win_t(g_wins[:, sl], warps[:, sl], y0[:, sl],
+                              x0[:, sl], h, w, init_image_size, joint=True)
+            df = dfk if df is None else df + dfk
+        return df
     wy, wx = _two_pass_weights(warps, h, w, init_image_size, g_wins.dtype,
                                y0, x0, s_y, s_x)
     # pass 1: dtmp[n, p, o, x, c] = Σ_a wx[n, p, o, a, x]·g[n, p, o, a, c]
@@ -490,15 +538,69 @@ def _place_args(masks_r, windows, h, w, t, static_empty):
     return sel, mwins, _place_offs(y0, x0, sel)
 
 
+def _place_batch_chunk(n, h, w, c, p, itemsize) -> int:
+    """Samples per call of the kernel-placed windowed fold (JAX's
+    ``_place_batch_chunk``, letter for letter).
+
+    The fold's transient stacks grow with the batch. JAX's estimate per
+    sample counts the joint pass-1 stack (P, S_y, W, C) and the wins stack
+    (P, S_y, S_x, C): ``p·s_y·(w + s_x)·c·itemsize`` bytes. While the batch
+    fits ``PT_WARP_PLACE_CHUNK_MB`` (default 3072; read at each call) it
+    runs in one call, else in chunks of as many samples as fit, at least
+    one (an empty value is the default; 0 and below give 1-sample chunks,
+    as in JAX). The port's banded weights, which JAX fuses into its dots,
+    are not in the estimate.
+    """
+    s_y, s_x = _kernel_window_sizes(h, w)
+    cap = int(os.environ.get("PT_WARP_PLACE_CHUNK_MB", "3072") or 3072)
+    per_sample = p * s_y * (w + s_x) * c * itemsize
+    if n * per_sample <= cap * 2**20:
+        return n
+    return max(1, min(n, (cap * 2**20) // per_sample))
+
+
+def _batch_chunks(n: int, chunk: int) -> list[slice]:
+    """``n // chunk`` full chunks in order, then one smaller call for the
+    remainder (never a chunk shrunk to a divisor of n)."""
+    return [slice(a, min(a + chunk, n)) for a in range(0, n, chunk)]
+
+
 def _fold_windowed_place(features, warps, masks_r, init_image_size,
                          windows, static_empty=(), emit_idx=True):
     """Kernel-placed windowed max fold → (out, idx).
 
     The body (part 0) is warped at full resolution and pre-masked; every
     other active part only inside its window (one batched two-pass over
-    the parts); ``fold_place`` does the placement, mask multiply, max /
-    argmax and the zero pass. idx stores ORIGINAL part indices.
+    the parts, or one per ``PT_WARP_JOINT_GROUP`` group); ``fold_place``
+    does the placement, mask multiply, max / argmax and the zero pass. idx
+    stores ORIGINAL part indices. A batch over ``_place_batch_chunk`` runs
+    chunk by chunk, one ``fold_place`` launch each: every sample's fold is
+    independent, so only the chunk's transients are alive at a time.
     """
+    n, h, w, c = features.shape
+    p = len(_place_actives(warps.shape[1], static_empty))
+    chunk = _place_batch_chunk(n, h, w, c, p, features.element_size())
+    if chunk >= n:
+        return _fold_windowed_place_chunk(features, warps, masks_r,
+                                          init_image_size, windows,
+                                          static_empty, emit_idx)
+    y0, x0 = windows
+    out = torch.empty_like(features)
+    idx = torch.empty(features.shape, dtype=torch.int8,
+                      device=features.device) if emit_idx else None
+    for sl in _batch_chunks(n, chunk):
+        o, i = _fold_windowed_place_chunk(
+            features[sl], warps[sl], masks_r[sl], init_image_size,
+            (y0[sl], x0[sl]), static_empty, emit_idx)
+        out[sl] = o
+        if emit_idx:
+            idx[sl] = i
+    return out, idx
+
+
+def _fold_windowed_place_chunk(features, warps, masks_r, init_image_size,
+                               windows, static_empty, emit_idx):
+    """``_fold_windowed_place`` on one call's samples."""
     n, h, w, c = features.shape
     t = warps.shape[1]
     y0, x0 = windows
@@ -507,8 +609,8 @@ def _fold_windowed_place(features, warps, masks_r, init_image_size,
 
     body = _warp_full(features, warps[:, 0], init_image_size)
     body = body * masks_r[:, 0][..., None]
-    wins = _warp_win(features, warps[:, sel], y0[:, sel], x0[:, sel], s_y,
-                     s_x, init_image_size)
+    wins = _warp_win_joint(features, warps[:, sel], y0[:, sel], x0[:, sel],
+                           s_y, s_x, init_image_size)
     if static_empty:
         # a statically-empty part contributes zero at EVERY pixel
         zero_nb = torch.ones((n, h, w), dtype=torch.bool,
@@ -521,7 +623,28 @@ def _fold_windowed_place(features, warps, masks_r, init_image_size,
 
 def _fold_windowed_place_bwd(g, warps, masks_r, idx, init_image_size,
                              windows, static_empty=()):
-    """Backward of ``_fold_windowed_place`` → f32 feature gradient.
+    """Backward of ``_fold_windowed_place`` → f32 feature gradient, in the
+    forward's chunks (``_place_batch_chunk`` re-derived from g's dtype, as
+    in JAX), one ``fold_route`` launch each."""
+    n, h, w, c = g.shape
+    p = len(_place_actives(warps.shape[1], static_empty))
+    chunk = _place_batch_chunk(n, h, w, c, p, g.element_size())
+    if chunk >= n:
+        return _fold_windowed_place_bwd_chunk(g, warps, masks_r, idx,
+                                              init_image_size, windows,
+                                              static_empty)
+    y0, x0 = windows
+    df = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    for sl in _batch_chunks(n, chunk):
+        df[sl] = _fold_windowed_place_bwd_chunk(
+            g[sl], warps[sl], masks_r[sl], idx[sl], init_image_size,
+            (y0[sl], x0[sl]), static_empty)
+    return df
+
+
+def _fold_windowed_place_bwd_chunk(g, warps, masks_r, idx, init_image_size,
+                                   windows, static_empty):
+    """``_fold_windowed_place_bwd`` on one call's samples.
 
     The mask windows and offsets are rebuilt from the saved masks and
     window starts (small); ``fold_route`` routes the cotangent to the

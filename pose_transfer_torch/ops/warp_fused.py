@@ -37,6 +37,7 @@ there is no VMEM budget — only the shape rules of ``supported``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -48,6 +49,14 @@ RCH = 8          # window rows must be a multiple of this
 
 LAUNCHES = {"fold_place": 0, "fold_place_idx": 0, "fold_route": 0,
             "fold_place_stream": 0}
+_count_lock = threading.Lock()    # replicas launch from a thread each
+
+
+def count_launch(counts: dict, *names: str) -> None:
+    """Add one launch to each of ``names`` in ``counts``."""
+    with _count_lock:
+        for name in names:
+            counts[name] += 1
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -290,9 +299,8 @@ def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
             zero_nb.data_ptr(), offs.data_ptr(), out.data_ptr(),
             idx.data_ptr() if emit_idx else None,
             n, h, w, c, p, sy, sx, _DTYPE_CODES[body.dtype], int(emit_idx))
-    LAUNCHES["fold_place"] += 1
-    if emit_idx:
-        LAUNCHES["fold_place_idx"] += 1
+    count_launch(LAUNCHES, "fold_place",
+                 *(("fold_place_idx",) if emit_idx else ()))
     return out, idx
 
 
@@ -328,7 +336,7 @@ def fold_route(g: torch.Tensor, idx: torch.Tensor, mask0: torch.Tensor,
             g.data_ptr(), idx.data_ptr(), mask0.data_ptr(), mwins.data_ptr(),
             offs.data_ptr(), gwins.data_ptr(), gbody.data_ptr(),
             n, h, w, c, p, sy, sx, _DTYPE_CODES[g.dtype])
-    LAUNCHES["fold_route"] += 1
+    count_launch(LAUNCHES, "fold_route")
     return gwins, gbody
 
 
@@ -363,5 +371,5 @@ def fold_place_stream(acc: torch.Tensor, idx: torch.Tensor | None,
             acc.data_ptr(), idx.data_ptr() if idx is not None else None,
             wins.data_ptr(), mwins.data_ptr(), offs.data_ptr(),
             n, h, w, c, p, sy, sx, _DTYPE_CODES[acc.dtype])
-    LAUNCHES["fold_place_stream"] += 1
+    count_launch(LAUNCHES, "fold_place_stream")
     return acc, idx

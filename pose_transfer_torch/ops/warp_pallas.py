@@ -321,9 +321,8 @@ def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
         idx.data_ptr() if emit_idx else None,
         None if stats is None else stats.data_ptr(),
         n, h, w, c, t, _DTYPE_CODES[features.dtype], int(emit_idx))
-    LAUNCHES["warp_fold"] += 1
-    if emit_idx:
-        LAUNCHES["warp_fold_idx"] += 1
+    warp_fused.count_launch(LAUNCHES, "warp_fold",
+                            *(("warp_fold_idx",) if emit_idx else ()))
     return out, idx
 
 
@@ -360,7 +359,7 @@ def warp_fold_bwd(g: torch.Tensor, warps_scaled: torch.Tensor,
         masks_r.data_ptr(), idx.data_ptr(), df.data_ptr(), bbox.data_ptr(),
         None if stats is None else stats.data_ptr(),
         n, h, w, c, t, _DTYPE_CODES[g.dtype])
-    LAUNCHES["warp_fold_bwd"] += 1
+    warp_fused.count_launch(LAUNCHES, "warp_fold_bwd")
     return df
 
 

@@ -1,7 +1,6 @@
 """Micro-batching inference server.
 
-Counterpart of ``pose_transfer_tpu/serve.py`` (single device; data-parallel
-serving comes with multi-GPU support):
+Counterpart of ``pose_transfer_tpu/serve.py``:
 
 - **Static-shape micro-batching**: requests accumulate into fixed
   ``batch_size`` batches; partial batches are padded by repeating the last
@@ -10,6 +9,10 @@ serving comes with multi-GPU support):
   ``max_wait_ms`` expires.
 - **Per-request futures** (``submit``) and a synchronous convenience
   (``generate``); p50/p95 latency and throughput counters (``stats``).
+- **Data-parallel serving** (``devices``): one generator replica per
+  device, each micro-batch split over them, one thread per device
+  (``parallel.make_parallel_eval_step``), as the JAX server shards a batch
+  over its mesh.
 
 Request contract: a source image (uint8 HWC at the config's image size), its
 keypoints and the target keypoints, (K, 2) (y, x) with MISSING_VALUE=-1. The
@@ -44,17 +47,24 @@ class PoseTransferServer:
       output_dtype: 'float32' (generator output in [-1, 1]) or 'uint8'
         (deprocessed on the device before the host copy).
       device: where the generator runs (default ``cuda``).
+      devices: serve data-parallel instead: a replica of ``gen`` on each
+        (a card may be named twice), ``batch_size`` divided evenly over
+        them; build ``config`` with ``parallel.config_for_mesh``.
     """
 
     def __init__(self, config, gen, *, max_wait_ms: float = 5.0,
                  queue_depth: int = 256, output_dtype: str = "float32",
-                 device=None):
+                 device=None, devices=None):
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"unknown output_dtype {output_dtype!r}")
         self._output_dtype = output_dtype
         self._config = config
         self._gen = gen
-        self._eval = make_eval_step(config, gen, device)
+        if devices is not None:
+            from .parallel import make_parallel_eval_step
+            self._eval = make_parallel_eval_step(config, gen, devices)
+        else:
+            self._eval = make_eval_step(config, gen, device)
         self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
         self._stop = threading.Event()
         self._max_wait = max_wait_ms / 1e3

@@ -3,8 +3,8 @@
     python3 -m pose_transfer_torch.tools.bench_fold [--batch 32] [--stage 0]
         [--mode {fwd,grad}] [--variant full,xla,kernel] [--dtype bfloat16]
         [--iters 20] [--warmup 5] [--device {cuda,cpu}]
-        [--experiment {ramp,joint,joint_bwd,partstream}] [--groups 3]
-        [--stream_idx]
+        [--experiment {ramp,joint,joint_bwd,partstream,batchchunk}]
+        [--groups 3] [--stream_idx] [--caps unset,1024,512,256]
 
 Counterpart of the JAX package's ``tools/bench_fold.py``, with its options
 and JSON keys, so that the two outputs can be read side by side. Times
@@ -22,6 +22,12 @@ gradient. Experiments instead of variants:
   wins stack: ms per call, the peak device memory of each leg, and whether
   the two outputs are equal. Both legs run without the argmax, as in the
   JAX tool; ``--stream_idx`` runs both with it and compares the argmax too.
+- ``batchchunk``: the kernel-placed fold, forward (no grad, as
+  ``partstream`` runs it) and forward with the feature gradient, under
+  ``PT_WARP_PLACE_CHUNK_MB`` caps (``--caps``; ``unset`` is the default
+  3072): the chunks, ms per call, peak device memory of each, the
+  ``fold_place`` / ``fold_route`` launches of one call, and whether output
+  and gradient equal the first cap's.
 - ``ramp``: the windowed warps of the parts (the production path, which
   builds the dense banded weights and multiplies by them), the weights'
   build alone and the two products on prebuilt weights.
@@ -37,7 +43,9 @@ default) needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 
 import numpy as np
@@ -191,6 +199,90 @@ def partstream(feats, warps, masks, image_size, groups: int,
     return lines
 
 
+@contextlib.contextmanager
+def fold_env(setting: dict):
+    """The fold's environment variables set to ``setting`` (a value of
+    None unsets one) inside the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in setting}
+    try:
+        for k, v in setting.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fold_chunks(feats, warps) -> list[int]:
+    """Samples per call of the kernel-placed fold under the current
+    ``PT_WARP_PLACE_CHUNK_MB`` (every part active)."""
+    n, h, w, c = feats.shape
+    p = len(W._place_actives(warps.shape[1], ()))
+    k = W._place_batch_chunk(n, h, w, c, p, feats.element_size())
+    return [sl.stop - sl.start for sl in W._batch_chunks(n, k)]
+
+
+def batchchunk(feats, warps, masks, image_size, settings: list[dict],
+               iters: int, warmup: int, pose_dim: int = 18):
+    """The batchchunk experiment: for each fold environment of
+    ``settings`` (``fold_env``) the kernel-placed fold's forward ('fwd', no
+    grad) and forward with the gradient of ``<out, g>`` by the features
+    ('grad', g seeded): one JSON line each, with the chunks, ms per call,
+    the peak memory above the inputs, one call's launches (and scan
+    fallbacks) and the comparison with the first setting's output and
+    gradient. Returns (lines, [(out, grad)] per setting)."""
+    device = feats.device
+    rng = np.random.default_rng(2)
+    g = torch.tensor(rng.standard_normal(tuple(feats.shape)),
+                     dtype=torch.float32).to(feats.dtype).to(device)
+    fwd = variant_fold("kernel", "fwd", feats, warps, masks, image_size,
+                       pose_dim)
+    static_empty = static_empty_parts(pose_dim)
+
+    def grad():
+        f = feats.detach().requires_grad_(True)
+        out = W.affine_transform_layer(
+            f, warps, masks, image_size, "mask", "max", windowed=True,
+            static_empty=static_empty, place_impl="kernel")
+        return out.detach(), torch.autograd.grad(out, f, g)[0]
+
+    lines, results = [], []
+    for setting in settings:
+        with fold_env(setting):
+            chunks = fold_chunks(feats, warps)
+            for mode, fn in (("fwd", fwd), ("grad", grad)):
+                before = {**WF.LAUNCHES, **W.COUNTS}
+                res, temp_gb = _peak_gb(fn, device)
+                after = {**WF.LAUNCHES, **W.COUNTS}
+                launches = {k: after[k] - before[k] for k in
+                            ("fold_place", "fold_route", "scan_fallback")}
+                ms = time_call(fn, iters, warmup, device)
+                line = {"experiment": "batchchunk", "mode": mode,
+                        "setting": setting, "chunks": chunks,
+                        "batch": feats.shape[0],
+                        "shape": list(feats.shape[1:]), "ms": ms,
+                        "temp_hbm_gb": temp_gb, "launches": launches,
+                        "backend": device.type}
+                if mode == "grad":
+                    results.append(res)
+                    ref = results[0]
+                    line.update(
+                        out_equal=bool(torch.equal(res[0], ref[0])),
+                        grad_equal=bool(torch.equal(res[1], ref[1])),
+                        max_abs_diff_out=(res[0].float() - ref[0].float())
+                        .abs().max().item(),
+                        max_abs_diff_grad=(res[1].float() - ref[1].float())
+                        .abs().max().item())
+                lines.append(line)
+    return lines, results
+
+
 def variant_fold(variant: str, mode: str, feats, warps, masks, image_size,
                  pose_dim: int):
     """A call of the fold ``variant`` in ``mode``: the forward's output
@@ -341,8 +433,13 @@ def main(argv=None) -> int:
     ap.add_argument("--stream_idx", action="store_true",
                     help="partstream: run both legs with the argmax and "
                          "compare it too")
+    ap.add_argument("--caps", default="unset,1024,512,256",
+                    help="batchchunk: PT_WARP_PLACE_CHUNK_MB caps in MB "
+                         "('unset' = the default 3072), the first the "
+                         "reference")
     ap.add_argument("--experiment", default=None,
-                    choices=("ramp", "joint", "joint_bwd", "partstream"))
+                    choices=("ramp", "joint", "joint_bwd", "partstream",
+                             "batchchunk"))
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -363,6 +460,11 @@ def main(argv=None) -> int:
     if args.experiment == "partstream":
         lines = partstream(feats, warps, masks, image_size, args.groups,
                            args.stream_idx, args.iters, args.warmup)
+    elif args.experiment == "batchchunk":
+        settings = [{"PT_WARP_PLACE_CHUNK_MB": None if cap == "unset"
+                     else int(cap)} for cap in args.caps.split(",")]
+        lines, _ = batchchunk(feats, warps, masks, image_size, settings,
+                              args.iters, args.warmup, args.pose_dim)
     elif args.experiment is not None:
         lines = exp[args.experiment](feats, warps, masks, image_size,
                                      args.iters, args.warmup)

@@ -30,7 +30,9 @@ generator state, so such a resume reseeds the dropout generator from
 ``save(..., block=False)`` copies the state to host memory first, on
 the caller's thread (the next step updates the parameters in place), then
 writes on a background thread; ``wait_for_saves`` joins the writes and
-re-raises a failed one.
+re-raises a failed one. In a data-parallel run (``group``) only rank 0
+writes and every rank waits at a barrier after the save; every rank
+resumes from the same files. The files do not depend on the run's width.
 """
 
 from __future__ import annotations
@@ -123,9 +125,19 @@ def _write(blobs, save_dir: str, epoch: int) -> None:
 _pending_saves: list[threading.Thread] = []
 
 
-def save(state, save_dir: str, epoch: int, *, block: bool = True) -> None:
+def save(state, save_dir: str, epoch: int, *, block: bool = True,
+         group=None) -> None:
     """Write the gen/disc checkpoint pair of ``state`` for ``epoch``.
-    ``block=False``: snapshot now, write on a background thread."""
+    ``block=False``: snapshot now, write on a background thread.
+    ``group`` (a ``parallel.ProcessGroup``): rank 0 writes, then every rank
+    waits at a barrier."""
+    if group is None or group.rank == 0:
+        _save(state, save_dir, epoch, block)
+    if group is not None:
+        group.barrier()
+
+
+def _save(state, save_dir: str, epoch: int, block: bool) -> None:
     os.makedirs(save_dir, exist_ok=True)
     blobs = _snapshot(state)
     if block:

@@ -85,6 +85,9 @@ class GANConfig:
     # the tiny overfit-smoke model: the first 2 encoder stages, a decoder
     # of (dec[-2], 3), a discriminator of blocks 128, 256 and 1
     check_mode: bool = False
+    # data-parallel width (``parallel.config_for_mesh`` sets it); the auto
+    # windowed rule reads the per-device batch batch_size // device_count
+    device_count: int = 1
 
     @property
     def input_nc(self) -> int:
@@ -130,15 +133,17 @@ class GANConfig:
 
 def auto_windowed(config: GANConfig, device: torch.device) -> bool:
     """``config.warp_windowed``, or where it is None the JAX package's auto
-    rule (``engine.py:153-157``, its TPU read as a CUDA device): windowed
+    rule (``engine.py:143-158``, its TPU read as a CUDA device): windowed
     when the placement kernel places (a CUDA device, a max fold, placement
-    not 'xla'), or at a batch of 16 or more, where the gather/scatter
-    placement pays for itself."""
+    not 'xla'), or at a per-device batch (``batch_size // device_count``:
+    each rank or replica folds its own rows) of 16 or more, where the
+    gather/scatter placement pays for itself."""
     if config.warp_windowed is not None:
         return config.warp_windowed
     kernel_place = (config.warp_place != "xla" and config.warp_agg == "max"
                     and device.type == "cuda")
-    return kernel_place or config.batch_size >= 16
+    per_device = config.batch_size // max(config.device_count, 1)
+    return kernel_place or per_device >= 16
 
 
 def _init(module: torch.nn.Module, config: GANConfig,
@@ -348,6 +353,11 @@ class TrainStep:
             if isinstance(m, ChannelDropout):
                 m.generator = state.rng
 
+    def _sync_grads(self, params) -> None:
+        """Between a phase's backward and its optimizer step: nothing on
+        one device; the data-parallel step all-reduces the gradients
+        here."""
+
     def _prepare(self, raw: dict) -> dict:
         with torch.no_grad():
             batch = self.prepare(raw)
@@ -371,6 +381,7 @@ class TrainStep:
         total = true_loss + fake_loss
         st.disc_opt.zero_grad(set_to_none=True)
         total.backward()
+        self._sync_grads(st.disc.parameters())
         st.disc_opt.step()
         return torch.stack([total, true_loss, fake_loss]).detach()
 
@@ -392,6 +403,7 @@ class TrainStep:
                 losses.total_variation_loss(out_gen)
         st.gen_opt.zero_grad(set_to_none=True)
         total.backward(inputs=list(st.gen.parameters()))
+        self._sync_grads(st.gen.parameters())
         st.gen_opt.step()
         out = torch.stack(stages) if stages else out_gen
         return torch.stack([total, ll, ad]).detach(), out.detach()

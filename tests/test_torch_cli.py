@@ -1,8 +1,8 @@
 """The port's command-line entry points on the CPU: the flags against the JAX
 package's, the whole flow ``make_synthetic_data → main → main --resume 1
 → test → evaluate`` with ``--device cpu``, the flags whose paths are not
-ported, the refusal to run without a card unless asked for the CPU, and a
-run on an installation without pandas and PIL.
+the refusal to run without a card unless asked for the CPU, and a run on
+an installation without pandas and PIL.
 """
 
 import contextlib
@@ -132,15 +132,6 @@ def test_profile_steps_write_a_trace(market_data):
     assert "Wrote profiler trace" in out
     trace = root / "exp" / "p" / "trace" / "trace.json"
     assert json.loads(trace.read_text())["traceEvents"]
-
-
-@pytest.mark.parametrize("flag,value,item", [
-    ("--num_devices", "2", "item 10"),
-])
-def test_unported_flags_raise(market_data, flag, value, item):
-    root, data = market_data
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
-        _run(main.main, _flags(root, data, "x", **{flag: value}))
 
 
 @pytest.mark.parametrize("entry", [main, infer, evaluate])

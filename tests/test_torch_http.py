@@ -183,10 +183,10 @@ def test_http_timeout_and_batch_failure_codes(exc, code):
         assert body == b"batch failed"
 
 
-def test_build_server_flags(jax_run, tmp_path):
+def test_build_server_flags(jax_run):
     """``--generator_checkpoint`` takes a JAX .msgpack file; no flag
     serves the seeded init; ``--warp_backend exact`` serves; ``--num_devices
-    2`` raises (not ported)."""
+    2`` serves the same images from two replicas."""
     root = jax_run["root"]
     path = str(root / "exp" / "j" / "models" / "gen_002.msgpack")
     reqs = _requests(2, seed=5)
@@ -194,7 +194,9 @@ def test_build_server_flags(jax_run, tmp_path):
     for name, extra in (("ckpt", ("--generator_checkpoint", path)),
                         ("resume", ("--resume", "1")), ("init", ()),
                         ("exact", ("--resume", "1", "--warp_backend",
-                                   "exact"))):
+                                   "exact")),
+                        ("replicas", ("--resume", "1", "--num_devices",
+                                      "2"))):
         with contextlib.redirect_stdout(io.StringIO()):
             pts = cli_serve.build_server(_opt(root, *extra))
         with pts:
@@ -203,5 +205,5 @@ def test_build_server_flags(jax_run, tmp_path):
     assert not np.array_equal(outs["init"], outs["resume"])
     assert outs["exact"].dtype == np.uint8
     assert outs["exact"].shape == outs["resume"].shape
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli_serve.build_server(_opt(tmp_path, "--num_devices", "2"))
+    # the batch of 2 split over two CPU replicas: the same images
+    np.testing.assert_array_equal(outs["replicas"], outs["resume"])
