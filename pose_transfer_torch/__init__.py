@@ -22,7 +22,7 @@ counterpart is found under the same name:
   cli/       the command-line entry points: synthetic data, pair files,
              training, inference grids, evaluation, the HTTP server
   utils/     PNG files, flax msgpack files, sample grids, parameter
-             counts, pose helpers
+             counts, pose helpers, the span recorder (``utils.spans``)
   parallel/  data-parallel training over spawned ranks (NCCL, gloo) and
              inference over replicas in one process
   serve.py   static-shape micro-batching inference server

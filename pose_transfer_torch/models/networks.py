@@ -24,6 +24,11 @@ their weights to it, the norm computes in f32 and rounds back), as flax's
 ``dtype`` does. The public layout is NHWC; inside, the convolution stacks
 run NCHW views of ``channels_last`` tensors, so the permutes at the
 boundary are views.
+
+Spans (``utils.spans``, while a profiler records): ``gen.encoder_app``,
+``gen.encoder_pose`` and ``gen.decoder`` in the deformable generator's
+forward (every stage of the stacked one), ``gen.encoder`` and
+``gen.decoder`` in the U-Net's.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..core import transforms_host as th
 from ..ops.norm import volume_instance_norm
 from ..ops.warp import (affine_transform_layer, check_backend, check_place,
                         plan_folds)
+from ..utils.spans import span
 
 
 def encoder_filters_for(image_size: tuple[int, int]) -> tuple[int, ...]:
@@ -241,8 +247,10 @@ class DeformableGenerator(nn.Module):
             inp, self.use_input_pose, self.pose_dim)
         inp_app = torch.cat([inp_img, inp_pose], dim=-1) \
             if inp_pose is not None else inp_img
-        skips_app = self.encoder_app(nchw(inp_app.contiguous()))
-        skips_pose = self.encoder_pose(nchw(tg_pose.contiguous()))
+        with span("gen.encoder_app"):
+            skips_app = self.encoder_app(nchw(inp_app.contiguous()))
+        with span("gen.encoder_pose"):
+            skips_pose = self.encoder_pose(nchw(tg_pose.contiguous()))
 
         # parts whose joints don't exist in this schema are empty for EVERY
         # sample (pose_dim 16: head + 4 knee-adjacent limbs)
@@ -265,7 +273,8 @@ class DeformableGenerator(nn.Module):
                     plan=plans[i])
                 sk_app = nchw(warped)
             skips.append(torch.cat([sk_app, sk_pose], dim=1))
-        return self.decoder(skips).permute(0, 2, 3, 1)
+        with span("gen.decoder"):
+            return self.decoder(skips).permute(0, 2, 3, 1)
 
 
 class UNetGenerator(nn.Module):
@@ -284,7 +293,10 @@ class UNetGenerator(nn.Module):
 
     def forward(self, inp):
         x = inp.to(self.dtype).contiguous().permute(0, 3, 1, 2)
-        return self.decoder(self.encoder(x)).permute(0, 2, 3, 1)
+        with span("gen.encoder"):
+            skips = self.encoder(x)
+        with span("gen.decoder"):
+            return self.decoder(skips).permute(0, 2, 3, 1)
 
 
 class StackedGenerator(nn.Module):

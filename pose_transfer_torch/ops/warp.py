@@ -52,6 +52,12 @@ for 'avg') and recomputed in the backward (``torch.utils.checkpoint``, as
 the JAX package's ``jax.checkpoint``). It plans no windows and launches no
 kernel: the JAX package has no Pallas kernel for it.
 
+Spans (``utils.spans``, while a profiler records): ``fold.plan`` around
+``plan_folds`` with ``fold.plan_sync`` around its one host sync;
+``fold.fwd.<h>x<w>`` around each fold instance's forward and
+``fold.bwd.<h>x<w>`` around ``WarpFold``'s backward, both with the
+instance's ``FoldPlan.branch``.
+
 Two environment variables bound the kernel-placed fold's memory, as in the
 JAX package (``warp.py:436-553``, ``:870-1018``), and are read at every
 call (the JAX package reads them when it traces):
@@ -76,6 +82,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from ..utils.spans import span
 from . import warp_fused, warp_pallas
 
 BACKENDS = ("matmul", "pallas", "exact")
@@ -783,6 +790,23 @@ class FoldPlan:
     xla: bool = False          # windows placed by _fold_windowed
     exact: bool = False        # the gather-bilinear fold, _fold_exact
 
+    @property
+    def branch(self) -> str:
+        """The fold this instance takes: 'exact', 'pallas' (the fused
+        warp fold), 'place' or 'xla' (the windowed fold, kernel- or
+        XLA-style placed), 'fallback' (windowable, but a part outgrew its
+        window: the full scan, counted in ``COUNTS['scan_fallback']``) or
+        'scan' (the full scan)."""
+        if self.exact:
+            return "exact"
+        if self.pallas:
+            return "pallas"
+        if self.windows is None:
+            return "scan"
+        if not self.fits:
+            return "fallback"
+        return "xla" if self.xla else "place"
+
 
 def check_place(place_impl: str) -> None:
     """Raise on an unknown windowed placement."""
@@ -817,41 +841,44 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
     host sync. A fold whose parts do not all fit takes the full scan, where
     the JAX package's ``lax.cond`` takes it.
     """
-    check_backend(backend)
-    check_place(place_impl)
-    plans, pending = [], []
-    t = warps.shape[1]
-    for n, h, w, c in shapes:
-        if warp_skip == "mask":
-            if masks is None:
-                raise ValueError("warp_skip='mask' requires part masks")
-            masks_r = resize_bilinear(masks.to(dtype), (h, w))
-        else:
-            masks_r = None
-        plan = FoldPlan(masks_r)
-        if backend == "exact":
-            plan.exact = True
-        elif backend == "pallas" and warp_agg == "max" \
-                and warp_pallas.supported(h, w):
-            plan.pallas = True
-        else:
-            kernel = _use_place_kernel(place_impl, h, w, c, t, warp_agg,
-                                       masks_r is not None, windowed,
-                                       static_empty)
-            windows = _fold_windows(masks_r, h, w, windowed,
-                                    warp_fused.X_ALIGN,
-                                    _kernel_window_sizes(h, w)) if kernel \
-                else _fold_windows(masks_r, h, w, windowed)
-            if windows is not None:
-                y0, x0, fits, _ = windows
-                plan.windows, plan.xla = (y0, x0), not kernel
-                pending.append((plan, fits[:, 1:].all()))
-        plans.append(plan)
-    if pending:
-        flags = torch.stack([f for _, f in pending]).tolist()
-        for (plan, _), ok in zip(pending, flags):
-            plan.fits = bool(ok)
-    return plans
+    with span("fold.plan", instances=len(shapes)):
+        check_backend(backend)
+        check_place(place_impl)
+        plans, pending = [], []
+        t = warps.shape[1]
+        for n, h, w, c in shapes:
+            if warp_skip == "mask":
+                if masks is None:
+                    raise ValueError("warp_skip='mask' requires part masks")
+                masks_r = resize_bilinear(masks.to(dtype), (h, w))
+            else:
+                masks_r = None
+            plan = FoldPlan(masks_r)
+            if backend == "exact":
+                plan.exact = True
+            elif backend == "pallas" and warp_agg == "max" \
+                    and warp_pallas.supported(h, w):
+                plan.pallas = True
+            else:
+                kernel = _use_place_kernel(place_impl, h, w, c, t, warp_agg,
+                                           masks_r is not None, windowed,
+                                           static_empty)
+                windows = _fold_windows(masks_r, h, w, windowed,
+                                        warp_fused.X_ALIGN,
+                                        _kernel_window_sizes(h, w)) if kernel \
+                    else _fold_windows(masks_r, h, w, windowed)
+                if windows is not None:
+                    y0, x0, fits, _ = windows
+                    plan.windows, plan.xla = (y0, x0), not kernel
+                    pending.append((plan, fits[:, 1:].all()))
+            plans.append(plan)
+        if pending:
+            flags = torch.stack([f for _, f in pending])
+            with span("fold.plan_sync"):
+                flags = flags.tolist()
+            for (plan, _), ok in zip(pending, flags):
+                plan.fits = bool(ok)
+        return plans
 
 
 def _pallas_args(features, warps, masks_r, init_image_size):
@@ -873,32 +900,27 @@ def _pallas_args(features, warps, masks_r, init_image_size):
 
 def _fold(features, warps, plan, init_image_size, warp_agg, static_empty,
           emit_idx):
-    """The fold on the branch ``plan`` chose → (out, idx, windowed)."""
-    if plan.exact:
+    """The fold on the branch ``plan`` chose → (out, idx)."""
+    branch = plan.branch
+    if branch == "exact":
         return _fold_exact(features, warps, plan.masks_r, init_image_size,
-                           warp_agg), None, False
-    if plan.pallas:
-        out, idx = warp_pallas.warp_fold(
+                           warp_agg), None
+    if branch == "pallas":
+        return warp_pallas.warp_fold(
             *_pallas_args(features, warps, plan.masks_r, init_image_size),
             emit_idx)
-        return out, idx, False
-    if plan.windows is not None:
-        if plan.fits:
-            if plan.xla:
-                out, idx = _fold_windowed(features, warps, plan.masks_r,
-                                          init_image_size, warp_agg,
-                                          plan.windows, static_empty,
-                                          emit_idx)
-            else:
-                out, idx = _fold_windowed_place(features, warps,
-                                                plan.masks_r, init_image_size,
-                                                plan.windows, static_empty,
-                                                emit_idx)
-            return out, idx, True
+    if branch == "xla":
+        return _fold_windowed(features, warps, plan.masks_r,
+                              init_image_size, warp_agg, plan.windows,
+                              static_empty, emit_idx)
+    if branch == "place":
+        return _fold_windowed_place(features, warps, plan.masks_r,
+                                    init_image_size, plan.windows,
+                                    static_empty, emit_idx)
+    if branch == "fallback":
         COUNTS["scan_fallback"] += 1
-    out, idx = _fold_scan(features, warps, plan.masks_r, init_image_size,
-                          warp_agg, static_empty, emit_idx)
-    return out, idx, False
+    return _fold_scan(features, warps, plan.masks_r, init_image_size,
+                      warp_agg, static_empty, emit_idx)
 
 
 class WarpFold(torch.autograd.Function):
@@ -914,12 +936,11 @@ class WarpFold(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, warps, plan, init_image_size, warp_agg,
                 static_empty):
-        out, idx, windowed = _fold(features, warps, plan, init_image_size,
-                                   warp_agg, static_empty, emit_idx=True)
-        y0, x0 = plan.windows if windowed else (None, None)
+        out, idx = _fold(features, warps, plan, init_image_size, warp_agg,
+                         static_empty, emit_idx=True)
+        y0, x0 = plan.windows or (None, None)
         ctx.save_for_backward(warps, plan.masks_r, idx, y0, x0)
-        ctx.windowed = windowed
-        ctx.xla = plan.xla
+        ctx.branch = plan.branch
         ctx.args = (init_image_size, warp_agg, static_empty)
         return out
 
@@ -931,17 +952,19 @@ class WarpFold(torch.autograd.Function):
         # kernel takes a contiguous, 16-byte aligned map
         if not g.is_contiguous() or g.data_ptr() % 16:
             g = g.clone(memory_format=torch.contiguous_format)
-        if ctx.windowed and ctx.xla:
-            df = _fold_windowed_bwd(g, warps, masks_r, idx, init_image_size,
-                                    warp_agg, (y0, x0), static_empty)
-        elif ctx.windowed:
-            df = _fold_windowed_place_bwd(g, warps, masks_r, idx,
-                                          init_image_size, (y0, x0),
-                                          static_empty)
-        else:
-            df = _fold_scan_bwd(g, warps, masks_r, idx, init_image_size,
-                                warp_agg, static_empty)
-        return df.to(g.dtype), None, None, None, None, None
+        with span(f"fold.bwd.{g.shape[1]}x{g.shape[2]}", branch=ctx.branch):
+            if ctx.branch == "xla":
+                df = _fold_windowed_bwd(g, warps, masks_r, idx,
+                                        init_image_size, warp_agg, (y0, x0),
+                                        static_empty)
+            elif ctx.branch == "place":
+                df = _fold_windowed_place_bwd(g, warps, masks_r, idx,
+                                              init_image_size, (y0, x0),
+                                              static_empty)
+            else:
+                df = _fold_scan_bwd(g, warps, masks_r, idx, init_image_size,
+                                    warp_agg, static_empty)
+            return df.to(g.dtype), None, None, None, None, None
 
 
 def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
@@ -987,17 +1010,19 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
         plan = plan_folds([tuple(features.shape)], warps, masks,
                           features.dtype, warp_skip, warp_agg, windowed,
                           static_empty, backend, place_impl)[0]
-    if torch.is_grad_enabled() and features.requires_grad:
-        if plan.exact:
-            # recomputed in the backward: autograd would otherwise keep
-            # every part's gathered taps
-            return torch.utils.checkpoint.checkpoint(
-                _fold_exact, features, warps, plan.masks_r, init_image_size,
-                warp_agg, use_reentrant=False)
-        if plan.pallas:
-            return warp_pallas.WarpFoldPallas.apply(*_pallas_args(
-                features, warps, plan.masks_r, init_image_size))
-        return WarpFold.apply(features, warps, plan, init_image_size,
-                              warp_agg, static_empty)
-    return _fold(features, warps, plan, init_image_size, warp_agg,
-                 static_empty, emit_idx=False)[0]
+    _, h, w, _ = features.shape
+    with span(f"fold.fwd.{h}x{w}", branch=plan.branch):
+        if torch.is_grad_enabled() and features.requires_grad:
+            if plan.exact:
+                # recomputed in the backward: autograd would otherwise keep
+                # every part's gathered taps
+                return torch.utils.checkpoint.checkpoint(
+                    _fold_exact, features, warps, plan.masks_r,
+                    init_image_size, warp_agg, use_reentrant=False)
+            if plan.pallas:
+                return warp_pallas.WarpFoldPallas.apply(*_pallas_args(
+                    features, warps, plan.masks_r, init_image_size))
+            return WarpFold.apply(features, warps, plan, init_image_size,
+                                  warp_agg, static_empty)
+        return _fold(features, warps, plan, init_image_size, warp_agg,
+                     static_empty, emit_idx=False)[0]

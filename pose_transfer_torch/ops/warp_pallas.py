@@ -20,6 +20,8 @@ Pieces, as for every kernel of the port:
   ``warp_fold_pallas_bwd_reference``.
 - ``LAUNCHES``: how many times each kernel was launched (``warp_fold_idx``
   counts the forward launches that emitted the argmax).
+- the span ``fold.bwd.<h>x<w>`` (``utils.spans``, branch 'pallas') around
+  ``WarpFoldPallas``'s backward; ``ops.warp`` spans the forward.
 
 Numerics, where the TPU kernel rounds (and where it differs from the
 matmul branch of ``ops/warp.py``):
@@ -48,6 +50,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils.spans import span
 from . import warp_fused
 
 OB = 8   # the TPU kernels' row and column blocks: the shape gate below
@@ -383,4 +386,5 @@ class WarpFoldPallas(torch.autograd.Function):
         # takes a contiguous, 16-byte aligned map
         if not g.is_contiguous() or g.data_ptr() % 16:
             g = g.clone(memory_format=torch.contiguous_format)
-        return warp_fold_bwd(g, warps_scaled, masks_r, idx), None, None
+        with span(f"fold.bwd.{g.shape[1]}x{g.shape[2]}", branch="pallas"):
+            return warp_fold_bwd(g, warps_scaled, masks_r, idx), None, None

@@ -9,6 +9,12 @@ Counterpart of ``pose_transfer_tpu/serve.py``:
   ``max_wait_ms`` expires.
 - **Per-request futures** (``submit``) and a synchronous convenience
   (``generate``); p50/p95 latency and throughput counters (``stats``).
+- **Spans** (``utils.spans``, recorded while a profiler records): the
+  client's ``serve.submit`` with its ``serve.fit``; each request's
+  ``serve.queue_wait`` sample; the batcher's ``serve.batch`` with its
+  ``serve.collect``, ``serve.collate``, ``serve.step``, ``serve.fetch``
+  and ``serve.deliver``. A request's spans share its ``req``, a per-server
+  sequence number; a batch's carry its own ``batch`` number.
 - **Data-parallel serving** (``devices``): one generator replica per
   device, each micro-batch split over them, one thread per device
   (``parallel.make_parallel_eval_step``), as the JAX server shards a batch
@@ -24,6 +30,7 @@ forward on the device). The stacked server answers with the last stage.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -34,6 +41,7 @@ import torch
 
 from .data.dataset import collate, interpol_chain, warp_fit
 from .train.engine import make_eval_step
+from .utils import spans
 
 
 class PoseTransferServer:
@@ -73,6 +81,8 @@ class PoseTransferServer:
         self._served = 0
         self._batches = 0
         self._t0 = time.time()
+        self._req_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -127,9 +137,12 @@ class PoseTransferServer:
         float32 in [-1, 1], or uint8 when ``output_dtype='uint8'``."""
         if self._stop.is_set():
             raise RuntimeError("server is closed")
-        fut: Future = Future()
-        sample = self.prepare_request(image, kp_from, kp_to)
-        self._q.put((sample, fut, time.perf_counter()))
+        req = next(self._req_ids)
+        with spans.span("serve.submit", req=req):
+            fut: Future = Future()
+            with spans.span("serve.fit", req=req):
+                sample = self.prepare_request(image, kp_from, kp_to)
+            self._q.put((sample, fut, time.perf_counter(), req))
         # close() may have drained the queue between the _stop check and
         # the put — drain again so no QUEUED future is stranded
         if self._stop.is_set():
@@ -151,48 +164,66 @@ class PoseTransferServer:
                 first = self._q.get(timeout=0.1)
             except queue.Empty:
                 continue
-            items = [first]
-            deadline = time.perf_counter() + self._max_wait
-            while len(items) < bs:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
+            b = next(self._batch_ids)
+            with spans.span("serve.batch", batch=b) as sb:
+                self._took(first, b)
+                items = [first]
+                with spans.span("serve.collect", batch=b):
+                    deadline = time.perf_counter() + self._max_wait
+                    while len(items) < bs:
+                        remaining = deadline - time.perf_counter()
+                        if remaining <= 0:
+                            break
+                        try:
+                            items.append(self._q.get(timeout=remaining))
+                        except queue.Empty:
+                            break
+                        self._took(items[-1], b)
+                sb.set(rows=len(items), reqs=[it[3] for it in items])
                 try:
-                    items.append(self._q.get(timeout=remaining))
-                except queue.Empty:
-                    break
-            try:
-                self._run_batch(items)
-            except Exception as e:  # surface the failure on every future
-                for _, fut, _ in items:
-                    if not fut.done():
-                        fut.set_exception(e)
+                    self._run_batch(items, b)
+                except Exception as e:  # surface the failure on every future
+                    for _, fut, _, _ in items:
+                        if not fut.done():
+                            fut.set_exception(e)
 
-    def _run_batch(self, items):
+    @staticmethod
+    def _took(item, batch: int) -> None:
+        """The batcher took ``item`` for ``batch``: its queue wait."""
+        spans.sample("serve.queue_wait", (time.perf_counter() - item[2]) * 1e3,
+               req=item[3], batch=batch)
+
+    def _run_batch(self, items, b: int):
         bs = self._config.batch_size
-        samples = [s for s, _, _ in items]
-        # static-shape pad: repeat the last sample; padded outputs dropped
-        samples = samples + [samples[-1]] * (bs - len(samples))
-        out, _ = self._eval(collate(samples))
-        if self._config.gen_type == "stacked":
-            out = out[-1]       # (S, N, H, W, 3) stages → the last
-        out = out[:len(items)]
-        if self._output_dtype == "uint8":
-            out = ((out.float().clamp(-1.0, 1.0) + 1.0) * 127.5) \
-                .to(torch.uint8)
-        else:
-            out = out.float()
-        out_np = out.cpu().numpy()
-        done = time.perf_counter()
-        with self._lock:
-            self._served += len(items)
-            self._batches += 1
-            for _, _, t_in in items:
-                self._latencies.append(done - t_in)
-            del self._latencies[:-1024]  # keep a recent window
-        for (_, fut, _), img in zip(items, out_np):
-            if not fut.done():
-                fut.set_result(img)
+        with spans.span("serve.collate", batch=b):
+            samples = [s for s, _, _, _ in items]
+            # static-shape pad: repeat the last sample; padded outputs
+            # dropped
+            samples = samples + [samples[-1]] * (bs - len(samples))
+            batch = collate(samples)
+        with spans.span("serve.step", batch=b):
+            out, _ = self._eval(batch)
+        with spans.span("serve.fetch", batch=b):
+            if self._config.gen_type == "stacked":
+                out = out[-1]       # (S, N, H, W, 3) stages → the last
+            out = out[:len(items)]
+            if self._output_dtype == "uint8":
+                out = ((out.float().clamp(-1.0, 1.0) + 1.0) * 127.5) \
+                    .to(torch.uint8)
+            else:
+                out = out.float()
+            out_np = out.cpu().numpy()
+        with spans.span("serve.deliver", batch=b):
+            done = time.perf_counter()
+            with self._lock:
+                self._served += len(items)
+                self._batches += 1
+                for _, _, t_in, _ in items:
+                    self._latencies.append(done - t_in)
+                del self._latencies[:-1024]  # keep a recent window
+            for (_, fut, _, _), img in zip(items, out_np):
+                if not fut.done():
+                    fut.set_result(img)
 
     # --------------------------------------------------------------- admin
 
@@ -226,7 +257,7 @@ class PoseTransferServer:
         ``_stop`` is set — the batcher stops dequeuing then)."""
         while True:
             try:
-                _, fut, _ = self._q.get_nowait()
+                _, fut, _, _ = self._q.get_nowait()
             except queue.Empty:
                 break
             if not fut.done():

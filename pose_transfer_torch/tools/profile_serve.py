@@ -15,15 +15,16 @@ backend, dataset and generator type:
 - the device time of one eval step on one prepared batch of synthetic
   requests (CUDA events, mean over 10 steps after warm-up) and its host
   wall time;
-- the device time by layer: batch preparation, the encoders, the fold
-  plan, each fold instance (by resolution) and the decoder, summed over
-  the stacked generator's stages (CUDA events around each, taken in
-  separate steps);
 - a ``torch.profiler`` trace of three steps: device time summed by kernel
   category (convolution, GEMM — the fold's two-pass einsums —, the
   ``fold_place``, ``fold_route``, ``warp_fold`` and ``warp_fold_bwd``
   kernels, other elementwise/reduction kernels), the device's
   idle share within the traced span, and the top kernels;
+- the layers, from the same trace: per step, each of the program's spans
+  (``utils.spans``: batch preparation, the encoders, the fold plan and its
+  sync, each fold instance by resolution, the decoder; the stacked
+  generator's stages add up under one name) with the device time of the
+  kernels launched inside it, its host time and its calls;
 - ``PoseTransferServer`` (default 5 ms admission window) under load, over
   384 requests cycled from a pool of 64 seeded synthetic ones:
   first all submitted at once (completed img/s: the capacity), then open-loop
@@ -50,6 +51,8 @@ from ..serve import PoseTransferServer
 from ..train.engine import GANConfig, build_models, make_eval_step
 
 ITERS = 10        # timed steps per device measurement
+# the name prefixes of the program's spans (utils.spans)
+SPANS = ("serve.", "step.", "train.", "gen.", "fold.")
 REQUESTS = 384    # requests per serving load: tails from hundreds, not tens
 # --dataset: image size and pose schema as the CLI derives them
 DATASETS = {"fasion": ((256, 256), 18), "h36m": ((224, 224), 16)}
@@ -98,55 +101,18 @@ def _category(name: str) -> str:
     return "elementwise_reduce"
 
 
-def _layer_ms(gen, step, batch, iters: int) -> dict:
-    """Mean device ms per step of each layer, from CUDA events recorded
-    around the encoders, the fold plan, every fold instance and the
-    decoder (wrapped for the duration of the measurement only; the stacked
-    generator's stages add up under one label each)."""
-    from ..models import networks
-
-    marks = []
-
-    def timed(label_of, fn):
-        def wrapper(*a, **k):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **k)
-            e.record()
-            marks.append((label_of(a), s, e))
-            return out
-        return wrapper
-
-    saved = (networks.affine_transform_layer, networks.plan_folds)
-    networks.affine_transform_layer = timed(
-        lambda a: f"fold_{a[0].shape[1]}x{a[0].shape[2]}", saved[0])
-    networks.plan_folds = timed(lambda a: "fold_plan", saved[1])
-    core = getattr(gen, "generator", gen)        # the stacked one's shared
-    mods = {name: getattr(core, name) for name in (
-        "encoder_app", "encoder_pose", "encoder", "decoder")
-        if hasattr(core, name)}
-    for name, mod in mods.items():
-        mod.forward = timed(lambda a, n=name: n, mod.forward)
-    try:
-        for _ in range(iters):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            step(batch)
-            e.record()
-            marks.append(("step", s, e))
-    finally:
-        networks.affine_transform_layer, networks.plan_folds = saved
-        for mod in mods.values():
-            del mod.forward
-    torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for label, s, e in marks:
-        out[label] = out.get(label, 0.0) + s.elapsed_time(e) / iters
-    inside = sum(v for k, v in out.items() if k != "step")
-    out["prepare_and_other"] = out["step"] - inside
-    return out
+def _span_ms(prof, steps: int) -> dict:
+    """Per step, each of the program's spans in the trace (by name): the
+    device time of the kernels launched inside it, its host time and its
+    calls."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU \
+                and ev.key.startswith(SPANS):
+            out[ev.key] = {"device_ms": ev.device_time_total / 1e3 / steps,
+                           "host_ms": ev.cpu_time_total / 1e3 / steps,
+                           "calls": ev.count / steps}
+    return dict(sorted(out.items()))
 
 
 def _idle_share(prof) -> dict:
@@ -255,11 +221,6 @@ def main(argv=None) -> int:
                       "wall_ms": wall_ms,
                       "img_per_s_device": args.batch / dev_ms * 1e3}),
           flush=True)
-    print(json.dumps({"phase": "layers", **tag,
-                      "device_ms_per_step": _layer_ms(gen, step, batch,
-                                                      ITERS)}),
-          flush=True)
-
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -285,6 +246,8 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": k[:90], "ms_per_step": us / 1e3 / 3,
                          "calls_per_step": c / 3}
                         for us, k, c in kernels[:15]]}), flush=True)
+    print(json.dumps({"phase": "layers", **tag,
+                      "spans_per_step": _span_ms(prof, 3)}), flush=True)
 
     rng = np.random.default_rng(1)
     pool = requests(rng, 64, cfg)

@@ -19,18 +19,16 @@ backend, dataset, generator type and content layer:
   the device time, and peak device memory. Images per step are counted as
   N·(2·training_ratio + 1), the generator forwards' inputs, as the JAX
   package's bench counts them;
-- the device time by layer (CUDA events around each, taken in separate
-  steps): batch preparation, the discriminator phase's generator forward
-  and each of its fold instances, the discriminator forward, backward and
-  Adam update, the generator phase's forward and its fold instances, the
-  discriminator forward in the generator phase, the reconstruction loss
-  (L1, or the VGG features and nn_loss), the generator backward with
-  each fold instance's backward (the fold_route launch and the transposed
-  warps, or the warp_fold_bwd launch) and nn_loss's backward split out,
-  and the generator's Adam update;
 - a ``torch.profiler`` trace of two steps: device time by kernel category
   (``profile_serve._category``), the device's idle share within the traced
-  span (``profile_serve._idle_share``) and the top kernels.
+  span (``profile_serve._idle_share``) and the top kernels;
+- the layers, from the same trace (``profile_serve._span_ms``): per step,
+  each of the program's spans (``utils.spans``: the two phases, batch
+  preparation, the encoders, the fold plan and its sync, each fold
+  instance's forward and backward by resolution, the decoder, the
+  backward passes and the Adam updates) with the device time of the
+  kernels launched inside it, its host time and its calls; and the fold
+  kernels' launches a step.
 Needs a CUDA device.
 """
 
@@ -45,13 +43,10 @@ import numpy as np
 import torch
 
 from ..data.synthetic import synthetic_compact_batch
-from ..models import networks
-from ..ops import nn_loss as nn_loss_mod
-from ..ops import warp as warp_mod
 from ..ops import warp_fused, warp_pallas
-from ..train import engine
 from ..train.engine import GANConfig, create_state, make_train_step
-from .profile_serve import DATASETS, _category, _idle_share, config_for
+from .profile_serve import (DATASETS, _category, _idle_share, _span_ms,
+                            config_for)
 
 ITERS = 5         # timed steps per measurement
 WARMUP = 2
@@ -70,114 +65,6 @@ def _batches(cfg: GANConfig, rng, count: int):
         return {k: np.stack([d[k] for d in draws]) for k in draws[0]}
 
     return [(stack(), stack(), draw()) for _ in range(count)]
-
-
-def _layer_ms(step, batches) -> dict:
-    """Mean device ms per step of each layer, from CUDA events recorded
-    around it; the wrappers are installed for this measurement only."""
-    st = step.state
-    marks = []
-    phase = ["?"]
-
-    def timed(label_of, fn):
-        def wrapper(*a, **k):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **k)
-            e.record()
-            marks.append((label_of(a), s, e))
-            return out
-        return wrapper
-
-    def in_phase(name):
-        return lambda a: f"{name} ({phase[0]})"
-
-    def set_phase(name, fn):
-        def wrapper(*a, **k):
-            phase[0] = name
-            return fn(*a, **k)
-        return wrapper
-
-    def res(a):
-        return f"{a[0].shape[1]}x{a[0].shape[2]}"
-
-    saved_mod = {
-        (networks, "affine_transform_layer"): networks.affine_transform_layer,
-        (warp_mod, "_fold_windowed_place_bwd"):
-            warp_mod._fold_windowed_place_bwd,
-        (warp_mod, "_fold_scan_bwd"): warp_mod._fold_scan_bwd,
-        (warp_fused, "fold_route"): warp_fused.fold_route,
-        (warp_pallas, "warp_fold_bwd"): warp_pallas.warp_fold_bwd,
-        (torch.Tensor, "backward"): torch.Tensor.backward,
-        (engine, "reconstruction_loss"): engine.reconstruction_loss,
-        # the staticmethod itself, so that restoring it keeps it one
-        (nn_loss_mod.NNLoss, "backward"):
-            nn_loss_mod.NNLoss.__dict__["backward"],
-    }
-    networks.affine_transform_layer = timed(
-        lambda a: f"fold_fwd_{res(a)} ({phase[0]})",
-        saved_mod[(networks, "affine_transform_layer")])
-    warp_mod._fold_windowed_place_bwd = timed(
-        lambda a: f"fold_bwd_{res(a)} (gen phase)",
-        saved_mod[(warp_mod, "_fold_windowed_place_bwd")])
-    warp_mod._fold_scan_bwd = timed(
-        lambda a: f"fold_bwd_{res(a)} (gen phase)",
-        saved_mod[(warp_mod, "_fold_scan_bwd")])
-    warp_fused.fold_route = timed(
-        lambda a: f"fold_route_{res(a)} (gen phase)",
-        saved_mod[(warp_fused, "fold_route")])
-    warp_pallas.warp_fold_bwd = timed(
-        lambda a: f"fold_bwd_{res(a)} (gen phase)",
-        saved_mod[(warp_pallas, "warp_fold_bwd")])
-    torch.Tensor.backward = timed(in_phase("backward"),
-                                  saved_mod[(torch.Tensor, "backward")])
-    engine.reconstruction_loss = timed(
-        in_phase("reconstruction_loss"),
-        saved_mod[(engine, "reconstruction_loss")])
-    nn_loss_mod.NNLoss.backward = staticmethod(timed(
-        lambda a: "nn_loss_bwd (gen phase)", nn_loss_mod.NNLoss.backward))
-    inst = {(step, "disc_phase"): set_phase("disc phase", step.disc_phase),
-            (step, "gen_phase"): set_phase("gen phase", step.gen_phase)}
-    inst[(step, "prepare")] = timed(in_phase("prepare"), step.prepare)
-    inst[(st.gen, "forward")] = timed(in_phase("gen_forward"),
-                                      st.gen.forward)
-    inst[(st.disc, "forward")] = timed(in_phase("disc_forward"),
-                                       st.disc.forward)
-    inst[(st.gen_opt, "step")] = timed(lambda a: "adam (gen phase)",
-                                       st.gen_opt.step)
-    inst[(st.disc_opt, "step")] = timed(lambda a: "adam (disc phase)",
-                                        st.disc_opt.step)
-    # instance attributes to restore (step.prepare); the rest are methods
-    # of the class, uncovered again by deleting the instance's wrapper
-    own = {key: key[0].__dict__.get(key[1]) for key in inst}
-    for (obj, name), fn in inst.items():
-        setattr(obj, name, fn)
-    try:
-        for b in batches:
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            step(*b)
-            e.record()
-            marks.append(("step", s, e))
-    finally:
-        for (obj, name), fn in saved_mod.items():
-            setattr(obj, name, fn)
-        for (obj, name), fn in own.items():
-            if fn is None:
-                delattr(obj, name)
-            else:
-                setattr(obj, name, fn)
-    torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for label, s, e in marks:
-        out[label] = out.get(label, 0.0) + s.elapsed_time(e) / len(batches)
-    inside = sum(v for k, v in out.items()
-                 if k.startswith("fold_bwd_") or k.startswith("nn_loss_bwd"))
-    out["gen backward other than the fold and nn_loss (gen phase)"] = \
-        out.get("backward (gen phase)", 0.0) - inside
-    return dict(sorted(out.items()))
 
 
 def profile(batch: int, smi: str, warp_backend: str = "matmul",
@@ -220,19 +107,13 @@ def profile(batch: int, smi: str, warp_backend: str = "matmul",
     def counts():
         return {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES}
     launches0 = counts()
-    layers = _layer_ms(step, [batches[i % len(batches)]
-                              for i in range(ITERS)])
-    launches = {k: (v - launches0[k]) / ITERS for k, v in counts().items()}
-    print(json.dumps({"phase": "train_layers", **tag,
-                      "kernel_launches_per_step": launches,
-                      "device_ms_per_step": layers}), flush=True)
-
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for i in range(2):
             step(*batches[i])
         torch.cuda.synchronize()
+    launches = {k: (v - launches0[k]) / 2 for k, v in counts().items()}
     by_cat: dict[str, float] = {}
     kernels = []
     for ev in prof.key_averages():
@@ -251,6 +132,9 @@ def profile(batch: int, smi: str, warp_backend: str = "matmul",
         "top_kernels": [{"name": k[:90], "ms_per_step": us / 1e3 / 2,
                          "calls_per_step": c / 2}
                         for us, k, c in kernels[:15]]}), flush=True)
+    print(json.dumps({"phase": "train_layers", **tag,
+                      "kernel_launches_per_step": launches,
+                      "spans_per_step": _span_ms(prof, 2)}), flush=True)
 
 
 def main(argv=None) -> int:

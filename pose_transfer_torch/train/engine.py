@@ -11,6 +11,11 @@ cadence — ``training_ratio`` discriminator updates (each on a fake-path
 draw and an independent real draw, the generator forward under
 ``torch.no_grad()``), then one generator update, both with Adam.
 
+Spans (``utils.spans``, while a profiler records): ``step.prepare``
+around the batch preparer of either step; ``train.disc_phase`` and
+``train.gen_phase`` (attribute ``step``), each with ``train.backward``
+and ``train.optimizer``.
+
 Each step sets the module modes it needs (eval for inference, train for
 training), so a server and a trainer may share one generator in turn.
 """
@@ -36,6 +41,7 @@ from ..models.networks import (
     init_weights,
 )
 from ..ops.nn_loss import nn_loss
+from ..utils.spans import span
 from . import losses
 
 
@@ -229,7 +235,8 @@ def make_eval_step(config: GANConfig, gen: torch.nn.Module, device=None):
     def eval_step(batch_raw: dict):
         gen.eval()
         with torch.inference_mode():
-            batch = prepare(batch_raw)
+            with span("step.prepare"):
+                batch = prepare(batch_raw)
             out, stages = gen_apply(gen, batch, config)
             if stages:
                 out = torch.stack(stages)
@@ -359,7 +366,7 @@ class TrainStep:
         here."""
 
     def _prepare(self, raw: dict) -> dict:
-        with torch.no_grad():
+        with torch.no_grad(), span("step.prepare"):
             batch = self.prepare(raw)
         if batch["input"].shape[0] != self.config.batch_size:
             raise ValueError(f"batch of {batch['input'].shape[0]} rows, "
@@ -368,45 +375,51 @@ class TrainStep:
 
     def disc_phase(self, fake_raw: dict, real_raw: dict) -> torch.Tensor:
         """One discriminator update → [total, true, fake]."""
-        cfg, st = self.config, self.state
-        n = cfg.batch_size
-        fake, real = self._prepare(fake_raw), self._prepare(real_raw)
-        with torch.no_grad():
-            out_gen, _ = gen_apply(st.gen, fake, cfg)
-        both = torch.cat([disc_input(real["input"], real["target"], cfg),
-                          disc_input(fake["input"], out_gen, cfg)])
-        res = st.disc(both)
-        true_loss, fake_loss = losses.disc_adversarial_loss(
-            res[:n], res[n:], cfg.gan_penalty_weight, n)
-        total = true_loss + fake_loss
-        st.disc_opt.zero_grad(set_to_none=True)
-        total.backward()
-        self._sync_grads(st.disc.parameters())
-        st.disc_opt.step()
-        return torch.stack([total, true_loss, fake_loss]).detach()
+        with span("train.disc_phase", step=self.state.step):
+            cfg, st = self.config, self.state
+            n = cfg.batch_size
+            fake, real = self._prepare(fake_raw), self._prepare(real_raw)
+            with torch.no_grad():
+                out_gen, _ = gen_apply(st.gen, fake, cfg)
+            both = torch.cat([disc_input(real["input"], real["target"], cfg),
+                              disc_input(fake["input"], out_gen, cfg)])
+            res = st.disc(both)
+            true_loss, fake_loss = losses.disc_adversarial_loss(
+                res[:n], res[n:], cfg.gan_penalty_weight, n)
+            total = true_loss + fake_loss
+            st.disc_opt.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                total.backward()
+            self._sync_grads(st.disc.parameters())
+            with span("train.optimizer"):
+                st.disc_opt.step()
+            return torch.stack([total, true_loss, fake_loss]).detach()
 
     def gen_phase(self, gen_raw: dict):
         """One generator update → ([total, ll, ad], out_gen: the output,
         or the stacked generator's stages stacked). Only the generator's
         parameters receive gradients."""
-        cfg, st = self.config, self.state
-        batch = self._prepare(gen_raw)
-        out_gen, stages = gen_apply(st.gen, batch, cfg)
-        d_out = st.disc(disc_input(batch["input"], out_gen, cfg))
-        ad = losses.gen_adversarial_loss(d_out, cfg.gan_penalty_weight,
-                                         cfg.batch_size)
-        ll = reconstruction_loss(out_gen, batch["target"], st.vgg, cfg) \
-            * cfg.l1_penalty_weight
-        total = ad + ll
-        if cfg.tv_penalty_weight:
-            total = total + cfg.tv_penalty_weight * \
-                losses.total_variation_loss(out_gen)
-        st.gen_opt.zero_grad(set_to_none=True)
-        total.backward(inputs=list(st.gen.parameters()))
-        self._sync_grads(st.gen.parameters())
-        st.gen_opt.step()
-        out = torch.stack(stages) if stages else out_gen
-        return torch.stack([total, ll, ad]).detach(), out.detach()
+        with span("train.gen_phase", step=self.state.step):
+            cfg, st = self.config, self.state
+            batch = self._prepare(gen_raw)
+            out_gen, stages = gen_apply(st.gen, batch, cfg)
+            d_out = st.disc(disc_input(batch["input"], out_gen, cfg))
+            ad = losses.gen_adversarial_loss(d_out, cfg.gan_penalty_weight,
+                                             cfg.batch_size)
+            ll = reconstruction_loss(out_gen, batch["target"], st.vgg, cfg) \
+                * cfg.l1_penalty_weight
+            total = ad + ll
+            if cfg.tv_penalty_weight:
+                total = total + cfg.tv_penalty_weight * \
+                    losses.total_variation_loss(out_gen)
+            st.gen_opt.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                total.backward(inputs=list(st.gen.parameters()))
+            self._sync_grads(st.gen.parameters())
+            with span("train.optimizer"):
+                st.gen_opt.step()
+            out = torch.stack(stages) if stages else out_gen
+            return torch.stack([total, ll, ad]).detach(), out.detach()
 
     def __call__(self, disc_fake: dict, disc_real: dict, gen_batch: dict):
         cfg, st = self.config, self.state

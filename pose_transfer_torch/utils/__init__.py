@@ -1,1 +1,1 @@
-"""Sample grids, image files and model summaries."""
+"""Sample grids, image files, model summaries and the span recorder."""

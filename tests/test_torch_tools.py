@@ -18,7 +18,8 @@ from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.tools import bench_fold
 from pose_transfer_torch.tools.profile_serve import (DATASETS, _category,
                                                      _idle_share, _serve_load,
-                                                     config_for, requests)
+                                                     _span_ms, config_for,
+                                                     requests)
 from pose_transfer_torch.tools.profile_train import _batches
 from pose_transfer_torch.train import engine, losses
 from pose_transfer_torch.train.engine import GANConfig
@@ -63,6 +64,29 @@ def test_serve_load_counts_every_request(rate):
     assert 0 < lat["p50"] <= lat["p95"] <= lat["p99"]
     assert got["img_per_s"] > 0 and 0 < got["mean_batch_fill"] <= 2
     assert got["batches"] >= 3
+
+
+def test_span_table_reads_the_programs_spans():
+    """The profilers' layer table: one profiled eval step's spans, by
+    name, with their calls a step (device time 0 on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+    size = (64, 64)
+    cfg = GANConfig(image_size=size, batch_size=2, warp_windowed=True)
+    gen = DeformableGenerator(18, size, (8, 16, 16, 16), (16, 16, 16, 3),
+                              warp_windowed=True)
+    init_weights(gen, torch.Generator().manual_seed(0))
+    step = engine.make_eval_step(cfg, gen.eval(), "cpu")
+    batch = _batches(cfg, np.random.default_rng(0), 1)[0][2]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            step(batch)
+    got = _span_ms(prof, 2)
+    assert set(got) == {
+        "step.prepare", "gen.encoder_app", "gen.encoder_pose", "fold.plan",
+        "fold.plan_sync", "gen.decoder",
+        *(f"fold.fwd.{s}x{s}" for s in (64, 32, 16, 8))}
+    assert all(v["calls"] == 1 and v["host_ms"] > 0 and v["device_ms"] == 0
+               for v in got.values())
 
 
 def test_kernel_categories():
