@@ -19,19 +19,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               these; with --ablate on ablated inputs too; fold_place_stream
               over 9 parts in groups of 3 at the windowed stages;
               fold_place and fold_route also at h36m's 224² stage (4 parts,
-              zero_nb all ones)
+              zero_nb all ones); warp_taps (bitwise, and against the banded
+              products) and warp_taps_t (within a stated tolerance) at
+              every fold stage of the benchmark cells at batch 32, the
+              windows' call and the full map's (TAPS_STAGES)
   4. serve    the full-width fashion-256 deformable generator (bf16, seeded
               random weights) behind PoseTransferServer: two full batches
               of 8 and a padded partial batch of 3; outputs checked, fold
-              kernel launches counted, the kernel-placed fold held against
-              the plain full-scan fold
+              and tap kernel launches counted, the kernel-placed fold held
+              against the plain full-scan fold on the banded warps
   5. train    the two-phase GAN step at full width (generator and
               discriminator, bf16, batch 8, seeded): one warm-up step and 3
               steps on synthetic batches; losses finite, both nets' weights
               moved, fold_place and fold_route launches counted; then the
               fold's gradient through the kernels (fold_place with the
-              argmax, fold_route) held against autograd through the plain
-              full-scan fold, in f32
+              argmax, fold_route, warp_taps, warp_taps_t) held against
+              autograd through the plain full-scan fold on the banded
+              warps, in f32
   6. pallas   warp_backend='pallas': the same serving and training paths
               with the 256² and 128² fold stages on the fused two-pass warp
               fold (warp_fold, and warp_fold_bwd in the backward; the 64²
@@ -140,8 +144,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               here is a scaling result (one card)
  19. the kernels line (warp_fold and warp_fold_bwd: ms and bounds on the
      random set, as since their first port; ms_main, plain_ms_main and
-     bound_ms_main on a training step's own inputs; launches summed over
-     every path that drives them), then the last line
+     bound_ms_main on a training step's own inputs; warp_taps and
+     warp_taps_t: summed over fashion's bf16 calls of phase 3; launches
+     summed over every path that drives them), then the last line
      {"ok": true, "device": {...}}
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -224,6 +229,34 @@ H36M_PLACE_STAGE, H36M_PARTS = (224, 64, 112, 128), 4
 PLACE_SHAPES = tuple((st, PARTS, False, "fasion") for st in STAGES) \
     + ((H36M_PLACE_STAGE, H36M_PARTS, True, "h36m"),)
 STREAM_PG = 3                 # parts per fold_place_stream group (phase 3)
+# phase 3's warp_taps / warp_taps_t calls: every fold stage of the
+# benchmark cells at their batch, (image, pose_dim, stage, dataset), on a
+# real batch's transforms and windows (tools/bench_fold.py's inputs). A
+# windowable stage makes the windows' call (all its active non-body parts;
+# the placement kernel's windows where the stage has them, else the
+# XLA-style (h/2, w/2) ones), every stage the full-map call (one part, as
+# the body's and the scan's warps make it); the windows' transpose runs
+# joint (f32 out), the full map's not (rounded to the dtype), as the fold's
+# backward calls them. The kernels line sums fashion's bf16 calls.
+TAPS_STAGES = tuple(((256, 256), 18, k, "fasion") for k in range(4)) \
+    + tuple(((224, 224), 16, k, "h36m") for k in range(4))
+TAPS_BATCH = 32
+# warp_taps: bitwise its plain version (the same f32 operations in the same
+# order); within TAPS_REL of the largest magnitude of the banded products:
+# cuBLAS's f32 sum of a pass's two products may round otherwise and flip a
+# bf16 rounding, rarely (a few elements a call, in lower binades than the
+# largest), so bf16 within one rounding of the largest; f32 a few ulps.
+# warp_taps_t against its plain version, which scatters the taps with
+# index_add_ (atomics, in no fixed order) where the kernel gathers them in
+# a fixed one: its f32 sums run in another order, and in bf16 a flipped
+# rounding of pass 1 (and, off joint, of pass 2) enters the result: within
+# TAPS_T_REL of the largest magnitude. The limits of
+# tests/test_torch_warp_taps.py at batch 2.
+TAPS_REL = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -20}
+TAPS_T_REL = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -18}
+# operations per window element: two taps a pass, a multiply and an add
+# each, at the two source columns of pass 1 and once in pass 2
+TAPS_OPS = 12
 # phase 7: the fold microbenchmark at fashion-256 stage 0
 STREAM_BATCH, STREAM_GROUPS = 32, (3, 9)
 BENCH_ITERS, BENCH_WARMUP = 3, 1
@@ -297,14 +330,22 @@ NUM_STACKS = 4
 # 256², 128², 64² on 'matmul'; 64² on 'pallas', whose fused fold takes 256²
 # and 128²) and of one training step (two forwards, one backward); the
 # stacked generator runs NUM_STACKS such forwards
-PER_FORWARD = {"matmul": {"fold_place": 3, "warp_fold": 0},
-               "pallas": {"fold_place": 1, "warp_fold": 2}}
+# warp_taps: 2 at a placed stage (body, windows), 1 a part (T = 10) at the
+# 32² scan; warp_taps_t the same in the backward. A fold that falls back to
+# the scan warps its T parts one by one where the placed fold warps twice:
+# TAPS_PER_FALLBACK more launches in its forward (and in its backward, where
+# the forward had one)
+PER_FORWARD = {"matmul": {"fold_place": 3, "warp_fold": 0, "warp_taps": 16},
+               "pallas": {"fold_place": 1, "warp_fold": 2, "warp_taps": 12}}
 PER_STEP = {"matmul": {"fold_place": 6, "fold_place_idx": 3, "fold_route": 3,
                        "warp_fold": 0, "warp_fold_idx": 0,
-                       "warp_fold_bwd": 0},
+                       "warp_fold_bwd": 0, "warp_taps": 32,
+                       "warp_taps_t": 16},
             "pallas": {"fold_place": 2, "fold_place_idx": 1, "fold_route": 1,
                        "warp_fold": 4, "warp_fold_idx": 2,
-                       "warp_fold_bwd": 2}}
+                       "warp_fold_bwd": 2, "warp_taps": 24,
+                       "warp_taps_t": 12}}
+TAPS_PER_FALLBACK = PARTS + 1 - 2
 
 
 def emit(obj) -> None:
@@ -433,7 +474,8 @@ def phase_kernels(flush) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     main = {"fold_place": _summary(), "fold_route": _summary(),
-            "fold_place_stream": _summary()}
+            "fold_place_stream": _summary(), "warp_taps": _summary(),
+            "warp_taps_t": _summary()}
     for dtype, bits in ((torch.bfloat16, torch.int16),
                         (torch.float32, torch.int32)):
         dname = str(dtype).split(".")[-1]
@@ -504,7 +546,118 @@ def phase_kernels(flush) -> dict:
                 m["max_abs_err"] = max(m["max_abs_err"], err)
                 if dtype == torch.bfloat16 and not with_idx:
                     _add(m, res)
+    for image, pose_dim, stage, dataset in TAPS_STAGES:
+        _check_taps(image, pose_dim, stage, dataset, main, flush)
     return main
+
+
+def _taps_calls(feats, warps, masks, static_empty, image):
+    """The stage's warp_taps calls: [(name, (N, P, 8) coefficients, the
+    transforms, y0, x0, s_y, s_x, joint)], the windows' where the stage is
+    windowable, then the full map's."""
+    n, h, w, _ = feats.shape
+    calls = []
+    if warp_mod._windowable(h, w):
+        _, sel, y0, x0, s_y, s_x = bench_fold._windows(feats, warps, masks,
+                                                       static_empty)
+        calls.append(("windows", warps[:, sel], y0[:, sel], x0[:, sel], s_y,
+                      s_x, True))
+    zero = torch.zeros((n, 1), dtype=torch.int64, device=feats.device)
+    calls.append(("full", warps[:, :1], zero, zero, h, w, False))
+    return [(name, warp_mod._tap_coeffs(wp, h, w, image, y0, x0), wp, y0,
+             x0, s_y, s_x, joint)
+            for name, wp, y0, x0, s_y, s_x, joint in calls]
+
+
+def _check_taps(image, pose_dim, stage, dataset, main, flush) -> None:
+    """warp_taps and warp_taps_t at one fold stage of a benchmark cell, at
+    TAPS_BATCH, bf16 and f32, on a real batch's transforms and windows:
+    the forward bitwise its plain version and within TAPS_REL of the
+    banded products, the transpose within TAPS_T_REL of its plain version;
+    ms (inputs cold), plain ms and bound per launch."""
+    static = static_empty_parts(pose_dim)
+    feats32, warps, masks = bench_fold._fold_inputs(
+        TAPS_BATCH, image, pose_dim, stage, torch.float32,
+        torch.device("cuda"))
+    n, h, w, c = feats32.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(stage)
+    for dtype, bits in ((torch.bfloat16, torch.int16),
+                        (torch.float32, torch.int32)):
+        dname = str(dtype).split(".")[-1]
+        feats, wd = feats32.to(dtype), warps.to(dtype)
+        item = feats.element_size()
+        for name, co, wp, y0, x0, s_y, s_x, joint in _taps_calls(
+                feats, wd, masks.to(dtype), static, image):
+            p = co.shape[1]
+            shape = {"N": n, "H": h, "W": w, "C": c, "P": p, "SY": s_y,
+                     "SX": s_x}
+            win = n * p * s_y * s_x * c
+            out = warp_fused.warp_taps(feats, co, s_y, s_x)
+            ref = warp_fused.warp_taps_reference(feats, co, s_y, s_x)
+            banded = warp_mod._warp_win_banded(feats, wp, y0, x0, s_y, s_x,
+                                               image)
+            torch.cuda.synchronize()
+            same = torch.equal(out.view(bits), ref.view(bits))
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = banded.float().abs().max().item()
+            banded_err = (out.float() - banded.float()).abs().max().item()
+            del ref, banded
+            ms = time_cuda(lambda: warp_fused.warp_taps(feats, co, s_y, s_x),
+                           20, flush)
+            plain_ms = time_cuda(lambda: warp_fused.warp_taps_reference(
+                feats, co, s_y, s_x), 3, flush)
+            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
+                item * (n * h * w * c + win) + 32 * n * p, TAPS_OPS * win)}
+            emit({"phase": "kernel", "name": "warp_taps", "dtype": dname,
+                  "dataset": dataset, "call": name, "shape": shape,
+                  "bitwise_equal": same, "max_abs_err": err,
+                  "banded_max_abs_diff": banded_err, "banded_scale": scale,
+                  "banded_tol": TAPS_REL[dtype] * scale, **res})
+            check(same, f"warp_taps bitwise {dtype} {name} at {h}x{w}x{c}")
+            check(scale > 0 and banded_err <= TAPS_REL[dtype] * scale,
+                  f"warp_taps vs banded {dtype} {name} at {h}x{w}x{c}: "
+                  f"{banded_err} of {scale}")
+            _taps_summary(main["warp_taps"], res, err, dtype, dataset)
+            del out
+
+            g = torch.randn((n, p, s_y, s_x, c), generator=gen,
+                            device="cuda").to(dtype)
+            df = warp_fused.warp_taps_t(g, co, h, w, joint)
+            ref = warp_fused.warp_taps_t_reference(g, co, h, w, joint)
+            again = warp_fused.warp_taps_t(g, co, h, w, joint)
+            torch.cuda.synchronize()
+            err = (df.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            tol = TAPS_T_REL[dtype] * scale
+            deterministic = torch.equal(df, again)
+            del ref, again
+            ms = time_cuda(lambda: warp_fused.warp_taps_t(g, co, h, w, joint),
+                           20, flush)
+            plain_ms = time_cuda(lambda: warp_fused.warp_taps_t_reference(
+                g, co, h, w, joint), 3, flush)
+            out_item = 4 if joint else item
+            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
+                item * win + out_item * n * h * w * c + 32 * n * p,
+                TAPS_OPS * win)}
+            emit({"phase": "kernel", "name": "warp_taps_t", "dtype": dname,
+                  "dataset": dataset, "call": name, "joint": joint,
+                  "shape": shape, "max_abs_err": err, "scale": scale,
+                  "tol": tol, "deterministic": deterministic, **res})
+            check(scale > 0 and err <= tol,
+                  f"warp_taps_t {dtype} {name} at {h}x{w}x{c}: {err} > {tol}")
+            check(deterministic, f"warp_taps_t {dtype} {name} at {h}x{w}x{c} "
+                  "differs between two calls")
+            _taps_summary(main["warp_taps_t"], res, err, dtype, dataset)
+            del df, g
+
+
+def _taps_summary(m: dict, res: dict, err: float, dtype, dataset) -> None:
+    """The kernels line's warp_taps(_t) entry: the largest error of every
+    call, the times and bounds summed over fashion's bf16 calls."""
+    m["max_abs_err"] = max(m["max_abs_err"], err)
+    if dtype == torch.bfloat16 and dataset == "fasion":
+        _add(m, res)
 
 
 def _check_stream(h, c, sy, sx, dtype, bits, with_idx, gen, flush):
@@ -903,6 +1056,11 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
           f"{place} fold_place launches + {fallbacks} fallbacks != "
           f"{windowed} per forward")
     check(place > 0, "serving launched no fold_place kernel")
+    taps = PER_FORWARD[backend]["warp_taps"] * forwards \
+        + TAPS_PER_FALLBACK * fallbacks
+    check(counts["warp_taps"] == taps and counts["warp_taps_t"] == 0,
+          f"{counts['warp_taps']} warp_taps launches != {taps}, or "
+          f"{counts['warp_taps_t']} warp_taps_t in serving")
     if backend == "pallas":
         check(counts["warp_fold"] == 2 * forwards
               and counts["warp_fold_idx"] == 0,
@@ -911,6 +1069,7 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
     emit({"phase": "serve", "backend": backend, "requests": 2 * BATCH + 3,
           "forwards": forwards, "fold_place_launches": place,
           "warp_fold_launches": counts["warp_fold"],
+          "warp_taps_launches": counts["warp_taps"],
           "scan_fallbacks": fallbacks,
           "fold_place_per_forward": place / forwards,
           "warp_fold_per_forward": counts["warp_fold"] / forwards,
@@ -936,9 +1095,15 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
         _reset_counts()
         out_k, _ = step(batch)
         one = _counts()
+        check(one["warp_taps"] > 0, f"no warp_taps launch in {phase}")
+        # the reference side's warps on the banded products, so that the
+        # tap kernel is not on both sides
         setattr(gen, attr, ref)
-        out_p, _ = step(batch)
+        with warp_mod.banded_warps():
+            out_p, _ = step(batch)
         setattr(gen, attr, under_test)
+        check(_counts()["warp_taps"] == one["warp_taps"],
+              f"warp_taps launched on {phase}'s reference side")
         diff = (out_k.float() - out_p.float()).abs()
         res = {"phase": phase, "dtype": str(dtype).split(".")[-1],
                "launches": one[kernel], "scan_fallbacks": one["scan_fallback"],
@@ -1015,8 +1180,15 @@ def _check_step_launches(counts: dict, backend: str, steps: int,
     scan fallback standing in for a fold_place launch."""
     want = {k: v * steps * stacks for k, v in PER_STEP[backend].items()}
     got = {k: counts[k] for k in want}
-    got["fold_place"] += counts["scan_fallback"]
-    check(got == want, f"{what}: launches {got} != {want}")
+    fallbacks = counts["scan_fallback"]
+    got["fold_place"] += fallbacks
+    got["warp_taps"] -= TAPS_PER_FALLBACK * fallbacks
+    # the discriminator phase's forwards have no backward
+    if 0 <= got["warp_taps_t"] - want["warp_taps_t"] \
+            <= TAPS_PER_FALLBACK * fallbacks:
+        got["warp_taps_t"] = want["warp_taps_t"]
+    check(got == want, f"{what}: launches {got} != {want} "
+          f"({fallbacks} fallbacks)")
     check(counts["fold_place"] > 0, f"{what}: no fold_place launch")
 
 
@@ -1057,7 +1229,8 @@ def phase_train(card: str, backend: str = "matmul") -> dict:
 
 def phase_fold_grad(backend: str = "matmul") -> list:
     """The fold's f32 gradient through the kernels against autograd
-    through the plain full-scan fold, at one real batch's warps and masks
+    through the plain full-scan fold on the banded warps
+    (``ops.warp.banded_warps``), at one real batch's warps and masks
     (seeded features and cotangent): on 'matmul' at the three windowed
     stages (fold_place with the argmax, fold_route), on 'pallas' at the two
     fused stages (warp_fold with the argmax, warp_fold_bwd)."""
@@ -1096,9 +1269,10 @@ def phase_fold_grad(backend: str = "matmul") -> list:
                 and warp_pallas.LAUNCHES["warp_fold_idx"] == 1
         check(ran, f"stage {h}: the kernel path did not run")
         fp = f.clone().requires_grad_(True)
-        out, _ = warp_mod._fold_scan(fp, warps, plan.masks_r, (256, 256),
-                                     "max", emit_idx=False)
-        out.backward(g)
+        with warp_mod.banded_warps():
+            out, _ = warp_mod._fold_scan(fp, warps, plan.masks_r, (256, 256),
+                                         "max", emit_idx=False)
+            out.backward(g)
         diff = (fk.grad - fp.grad).abs()
         scale = fp.grad.abs().max().item()
         tol, share = (GRAD_REL_TOL, GRAD_FLIP_SHARE) if backend == "matmul" \
@@ -1379,7 +1553,8 @@ def phase_cli_h36m(card: str) -> dict:
 
 def phase_fold_h36m() -> None:
     """The h36m 224² fold through the kernels (fold_place with the argmax,
-    fold_route) against the plain full scan, at a real pose_dim-16 batch's
+    fold_route) against the plain full scan (its gradient on the banded
+    warps), at a real pose_dim-16 batch's
     warps and masks (the 5 static-empty parts compacted out on both
     sides): forward and feature gradient, bf16 and f32. Forwards within
     the serving limits (BF16_MAX_ABS, BF16_MEAN_ABS, F32_MAX_ABS); f32
@@ -1415,9 +1590,11 @@ def phase_fold_h36m() -> None:
         check(one["fold_place_idx"] == 1 and one["fold_route"] == 1,
               f"h36m fold kernels {one}")
         fp = f.clone().requires_grad_(True)
-        out_p, _ = warp_mod._fold_scan(fp, warps, plan.masks_r, H36M, "max",
-                                       static_empty=static, emit_idx=False)
-        out_p.backward(g)
+        with warp_mod.banded_warps():
+            out_p, _ = warp_mod._fold_scan(fp, warps, plan.masks_r, H36M,
+                                           "max", static_empty=static,
+                                           emit_idx=False)
+            out_p.backward(g)
         dname = str(dtype).split(".")[-1]
         fdiff = (out_k.float() - out_p.float()).abs()
         ref = fp.grad.float()
@@ -1614,7 +1791,9 @@ def phase_stacked(card: str) -> dict:
         forwards = stats["batches"]
         per = PER_FORWARD[backend]
         got = {"fold_place": counts["fold_place"] + counts["scan_fallback"],
-               "warp_fold": counts["warp_fold"]}
+               "warp_fold": counts["warp_fold"],
+               "warp_taps": counts["warp_taps"]
+               - TAPS_PER_FALLBACK * counts["scan_fallback"]}
         want = {k: NUM_STACKS * v * forwards for k, v in per.items()}
         check(forwards == 2 and got == want
               and counts["warp_fold_idx"] == counts["fold_place_idx"] == 0,
@@ -1773,7 +1952,8 @@ def phase_cli_recipe(card: str) -> dict:
 
 HTTP_REQUESTS, HTTP_CLIENTS = 384, 16
 KERNELS = ("fold_place", "fold_place_idx", "fold_route", "warp_fold",
-           "warp_fold_idx", "warp_fold_bwd", "fold_place_stream")
+           "warp_fold_idx", "warp_fold_bwd", "fold_place_stream",
+           "warp_taps", "warp_taps_t")
 # warp_feature_single against grid_sample (f64 on a normalized affine
 # grid): the same bilinear function, the port's f32 positions rounded. A
 # position of magnitude up to 2h carries an error of a few f32 ulps of 2h
@@ -2635,6 +2815,12 @@ def main(argv=None) -> int:
     def new(name):
         return sum(p[name] for p in new_paths)
 
+    def taps_launches(name):
+        # every main path of the fashion and h36m phases, both backends
+        return serve_launches[name] + train_launches[name] \
+            + pallas_serve[name] + pallas_train[name] + cli_launches[name] \
+            + new(name)
+
     tpu = "pose_transfer_tpu/ops/"
     rows = (
         ("fold_place",
@@ -2654,13 +2840,20 @@ def main(argv=None) -> int:
          tpu + "warp_pallas.py:288", [tpu + "warp_pallas.py:307"]),
         ("fold_place_stream", stream_launches,
          tpu + "warp_fused.py:300", []),
+        # no TPU kernel: the banded dots of the windowed warp (:416) and of
+        # its transpose (:512), and the full map's (:332)
+        ("warp_taps", taps_launches("warp_taps"), tpu + "warp.py:416", []),
+        ("warp_taps_t", taps_launches("warp_taps_t"), tpu + "warp.py:512",
+         [tpu + "warp.py:332"]),
     )
     kernels = []
     for name, launches, replaces, also in rows:
         m = main_k[name]
+        # warp_taps.cu holds both tap kernels
+        source = "warp_taps" if name == "warp_taps_t" else name
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"pose_transfer_torch/csrc/{name}.cu",
+            "source": f"pose_transfer_torch/csrc/{source}.cu",
             "replaces": replaces, "also_replaces": also,
             "launches": launches, "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],

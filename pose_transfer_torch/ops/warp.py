@@ -6,10 +6,17 @@ part transforms the appearance skip is warped by an inverse pixel-space
 affine, multiplied by the part's mask (resized to the feature resolution),
 and the T results are folded by max (or mean).
 
-The warp is the two-pass (Catmull-Smith) resample of the JAX package as two
-banded-matrix products — NOT ``grid_sample``: for a transform with
-m10 ≠ 0 the vertical taps are evaluated at the source column, which differs
-from direct bilinear sampling by up to |m10| px. Same math, same numbers.
+The warp is the two-pass (Catmull-Smith) resample of the JAX package — NOT
+``grid_sample``: for a transform with m10 ≠ 0 the vertical taps are
+evaluated at the source column, which differs from direct bilinear sampling
+by up to |m10| px. Each output of either pass has at most two nonzero taps.
+On the CPU the two passes are the JAX package's two banded-matrix products
+(``_warp_win_banded``, ``_warp_win_t_banded``; on the card too inside
+``banded_warps``, the references' context); on the card the
+``warp_fused.warp_taps`` / ``warp_taps_t`` kernels compute the same taps,
+weights and roundings from the transforms, with no weight matrices (their
+f32 sums may differ from a product's in the last bit). Same math, same
+numbers.
 
 Three fold paths, chosen per fold instance:
 - the full scan (``_fold_scan``): every part warped at full resolution,
@@ -35,7 +42,7 @@ sync.
 The backward (``WarpFold``, the counterpart of ``warp_fold_matmul``'s custom
 VJP) saves no feature maps: the warp is linear in the features, so it
 routes the cotangent through the argmax and the transposed two-pass warps,
-rebuilding the banded weights. The kernel-placed branch routes with the
+recomputing their taps. The kernel-placed branch routes with the
 ``fold_route`` kernel; warps and masks get no gradient (host data).
 
 ``backend='pallas'`` (the JAX package's ``warp_backend='pallas'``) sends
@@ -75,6 +82,7 @@ resolution.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -220,6 +228,27 @@ def _ramp(pos: torch.Tensor, n_in: int, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
+def _warp_coeffs(warps: torch.Tensor, h: int, w: int,
+                 init_image_size: tuple[int, int]):
+    """(m00, m01, tx, m10, m11, ty) in f32 of (..., 8) transforms, the
+    translation scaled to the (h, w) map in the transforms' dtype, as in
+    JAX."""
+    m00, m01, tx, m10, m11, ty = (warps[..., k] for k in range(6))
+    tx = (tx * (w / init_image_size[1])).float()
+    ty = (ty * (h / init_image_size[0])).float()
+    m00, m01, m10, m11 = (m.float() for m in (m00, m01, m10, m11))
+    return m00, m01, tx, m10, m11, ty
+
+
+def _tap_coeffs(warps: torch.Tensor, h: int, w: int,
+                init_image_size: tuple[int, int], y0: torch.Tensor,
+                x0: torch.Tensor) -> torch.Tensor:
+    """The tap kernels' (N, P, 8) f32 rows (m00, m01, tx, m10, m11, ty, y0,
+    x0) of (N, P, 8) transforms and (N, P) window starts."""
+    return torch.stack([*_warp_coeffs(warps, h, w, init_image_size),
+                        y0.float(), x0.float()], dim=-1).contiguous()
+
+
 def _two_pass_weights(warps: torch.Tensor, h: int, w: int,
                       init_image_size: tuple[int, int], dtype: torch.dtype,
                       y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int):
@@ -237,11 +266,7 @@ def _two_pass_weights(warps: torch.Tensor, h: int, w: int,
       wx: (N, P, S_y, S_x, W) horizontal-pass weights.
     """
     dev = warps.device
-    m00, m01, tx, m10, m11, ty = (warps[..., k] for k in range(6))
-    # the translation scale runs in the transforms' dtype, as in JAX
-    tx = (tx * (w / init_image_size[1])).float()
-    ty = (ty * (h / init_image_size[0])).float()
-    m00, m01, m10, m11 = (m.float() for m in (m00, m01, m10, m11))
+    m00, m01, tx, m10, m11, ty = _warp_coeffs(warps, h, w, init_image_size)
     ar_y = torch.arange(s_y, dtype=torch.float32, device=dev)
     ar_x = torch.arange(s_x, dtype=torch.float32, device=dev)
     y_out = y0.float()[..., None] + ar_y + 0.5                # (N, P, S_y)
@@ -260,6 +285,25 @@ def _two_pass_weights(warps: torch.Tensor, h: int, w: int,
     return wy, wx
 
 
+# set inside ``banded_warps``: the warps run the banded products on the card
+_banded_on_card = False
+
+
+@contextlib.contextmanager
+def banded_warps():
+    """Inside the block, ``_warp_win`` and ``_warp_win_t`` compute the dense
+    banded products on the card too, as on the CPU: the reference that the
+    tap kernels are held to, and the plain fold that autograd
+    differentiates (the tap kernels take no input that requires grad)."""
+    global _banded_on_card
+    saved = _banded_on_card
+    _banded_on_card = True
+    try:
+        yield
+    finally:
+        _banded_on_card = saved
+
+
 def _warp_win(features: torch.Tensor, warps: torch.Tensor,
               y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int,
               init_image_size: tuple[int, int]) -> torch.Tensor:
@@ -267,8 +311,25 @@ def _warp_win(features: torch.Tensor, warps: torch.Tensor,
     (N, P, 8) transforms, (N, P) window starts → (N, P, S_y, S_x, C).
 
     Both passes accumulate in f32 and round once to the features' dtype,
-    as the JAX package's ``preferred_element_type`` dots do.
+    as the JAX package's ``preferred_element_type`` dots do. On the card
+    the ``warp_taps`` kernel computes them from their taps; on the CPU the
+    banded products (``_warp_win_banded``), as on the card inside
+    ``banded_warps``.
     """
+    if features.is_cuda and not _banded_on_card:
+        _, h, w, _ = features.shape
+        return warp_fused.warp_taps(
+            features.contiguous(),
+            _tap_coeffs(warps, h, w, init_image_size, y0, x0), s_y, s_x)
+    return _warp_win_banded(features, warps, y0, x0, s_y, s_x,
+                            init_image_size)
+
+
+def _warp_win_banded(features: torch.Tensor, warps: torch.Tensor,
+                     y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int,
+                     init_image_size: tuple[int, int]) -> torch.Tensor:
+    """``_warp_win`` as two products by the dense banded weights of
+    ``_two_pass_weights``."""
     n, h, w, c = features.shape
     p = warps.shape[1]
     wy, wx = _two_pass_weights(warps, h, w, init_image_size, features.dtype,
@@ -321,16 +382,19 @@ def _warp_win_t(g_wins: torch.Tensor, warps: torch.Tensor,
     """Linear transpose of ``_warp_win``: (N, P, S_y, S_x, C) window
     cotangents → (N, H, W, C) feature gradient, summed over the parts.
 
-    Same banded weights, contracted on the other sides, passes in reverse
-    order. Pass 1 rounds to the cotangents' dtype (f32 accumulate, one
-    rounding). ``joint``: pass 2 contracts the (part, window row) axes
-    together and returns f32 — JAX's ``_warp_batch_t_win_joint``; its
-    operands are upcast, which is exact for bf16 values, so the sum is the
-    f32 accumulation of the bf16 products; under ``PT_WARP_JOINT_GROUP``
+    Same taps and weights, passes in reverse order: on the card the
+    ``warp_taps_t`` kernel gathers them; on the CPU (and inside
+    ``banded_warps``) the banded weights, contracted on the other sides
+    (``_warp_win_t_banded``). Pass 1 rounds
+    to the cotangents' dtype (f32 accumulate, one rounding). ``joint``:
+    pass 2 contracts the (part, window row) axes together and returns f32
+    — JAX's ``_warp_batch_t_win_joint``; its operands are upcast, which is
+    exact for bf16 values, so the sum is the f32 accumulation of the bf16
+    products; under ``PT_WARP_JOINT_GROUP``
     one such contraction per group of parts (``_joint_group``). Otherwise
     pass 2 rounds to the cotangents' dtype too (``warp_feature_matmul_t``).
     """
-    n, p, s_y, s_x, c = g_wins.shape
+    p = g_wins.shape[1]
     group = _joint_group() if joint else 0
     if 0 < group < p:
         # PT_WARP_JOINT_GROUP: one joint contraction per group of parts,
@@ -343,6 +407,21 @@ def _warp_win_t(g_wins: torch.Tensor, warps: torch.Tensor,
                               x0[:, sl], h, w, init_image_size, joint=True)
             df = dfk if df is None else df + dfk
         return df
+    if g_wins.is_cuda and not _banded_on_card:
+        return warp_fused.warp_taps_t(
+            g_wins.contiguous(),
+            _tap_coeffs(warps, h, w, init_image_size, y0, x0), h, w, joint)
+    return _warp_win_t_banded(g_wins, warps, y0, x0, h, w, init_image_size,
+                              joint)
+
+
+def _warp_win_t_banded(g_wins: torch.Tensor, warps: torch.Tensor,
+                       y0: torch.Tensor, x0: torch.Tensor, h: int, w: int,
+                       init_image_size: tuple[int, int],
+                       joint: bool) -> torch.Tensor:
+    """``_warp_win_t`` of one contraction as products by the transposed
+    banded weights of ``_two_pass_weights``."""
+    n, p, s_y, s_x, c = g_wins.shape
     wy, wx = _two_pass_weights(warps, h, w, init_image_size, g_wins.dtype,
                                y0, x0, s_y, s_x)
     # pass 1: dtmp[n, p, o, x, c] = Σ_a wx[n, p, o, a, x]·g[n, p, o, a, c]
@@ -555,8 +634,9 @@ def _place_batch_chunk(n, h, w, c, p, itemsize) -> int:
     fits ``PT_WARP_PLACE_CHUNK_MB`` (default 3072; read at each call) it
     runs in one call, else in chunks of as many samples as fit, at least
     one (an empty value is the default; 0 and below give 1-sample chunks,
-    as in JAX). The port's banded weights, which JAX fuses into its dots,
-    are not in the estimate.
+    as in JAX). On the card the warps' taps are computed in the kernels,
+    with no weight matrices, so the estimate leaves nothing out there; the
+    CPU's banded weights, which JAX fuses into its dots, are not in it.
     """
     s_y, s_x = _kernel_window_sizes(h, w)
     cap = int(os.environ.get("PT_WARP_PLACE_CHUNK_MB", "3072") or 3072)

@@ -1,6 +1,7 @@
 """The fold's window kernels: ``fold_place`` (forward), ``fold_route``
 (backward) and ``fold_place_stream`` (the forward, one part group at a
-time).
+time); and the two-pass warp's tap kernels, ``warp_taps`` (the windowed
+warp) and ``warp_taps_t`` (its transpose).
 
 Counterpart of ``pose_transfer_tpu/ops/warp_fused.py::fold_place``,
 ``::fold_route`` and ``::fold_place_stream``. The deformable warp fold is
@@ -14,16 +15,22 @@ and a body route. ``fold_place_stream`` places one group of parts into an
 existing (running max, argmax) state, in place, with no body init and no
 zero pass: a caller that warps the parts group by group never holds every
 part's windows at once (``tools/bench_fold.py --experiment partstream``).
+``warp_taps`` and ``warp_taps_t`` replace no TPU kernel: they compute the
+two banded products of ``ops.warp._warp_win`` and ``_warp_win_t`` (dots on
+the TPU's MXU) on the card from the transforms, two taps a pass, where
+dense banded weights would be built on every call.
 
 Three pieces for each kernel, as for every kernel of the port:
-- the wrapper (``fold_place``, ``fold_route``, ``fold_place_stream``). A CPU
-  tensor takes the plain version; a CUDA tensor launches the hand-written
-  kernel (``csrc/fold_place.cu``, ``csrc/fold_route.cu``,
-  ``csrc/fold_place_stream.cu``, built by ``pose_transfer_torch._build``)
-  or raises. No path falls back from the kernel to the plain version. No
+- the wrapper (``fold_place``, ``fold_route``, ``fold_place_stream``,
+  ``warp_taps``, ``warp_taps_t``). A CPU tensor takes the plain version; a
+  CUDA tensor launches the hand-written kernel (``csrc/fold_place.cu``,
+  ``csrc/fold_route.cu``, ``csrc/fold_place_stream.cu``,
+  ``csrc/warp_taps.cu``, built by ``pose_transfer_torch._build``) or
+  raises. No path falls back from the kernel to the plain version. No
   output carries a gradient, so the wrappers refuse, under grad mode, an
   input that requires grad: the fold is differentiated by
-  ``ops.warp.WarpFold``, which calls them with grad mode off.
+  ``ops.warp.WarpFold``, which calls them with grad mode off (or with
+  inputs that need no gradient).
 - the plain PyTorch version (``*_reference``), same semantics.
 - ``LAUNCHES``: how many times each CUDA kernel was launched
   (``fold_place_idx`` counts the ``fold_place`` launches that emitted the
@@ -48,7 +55,7 @@ X_ALIGN = 16
 RCH = 8          # window rows must be a multiple of this
 
 LAUNCHES = {"fold_place": 0, "fold_place_idx": 0, "fold_route": 0,
-            "fold_place_stream": 0}
+            "fold_place_stream": 0, "warp_taps": 0, "warp_taps_t": 0}
 _count_lock = threading.Lock()    # replicas launch from a thread each
 
 
@@ -237,13 +244,14 @@ def _on_card(name, tensors, c):
     return True
 
 
-def _kernel_lib(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+def _kernel_lib(name: str, n_ptrs: int, n_ints: int,
+                entry: str | None = None) -> ctypes.CDLL:
     """The built ``csrc/<name>.cu`` with its C signatures declared: the
-    entry point ``name(ptrs..., ints..., stream)`` and
-    ``<name>_error_string``."""
+    entry point ``entry(ptrs..., ints..., stream)`` (``entry`` defaults to
+    ``name``) and the file's ``<name>_error_string``."""
     from .. import _build
     lib = _build.load(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, entry or name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
@@ -254,12 +262,16 @@ def _kernel_lib(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, lib: ctypes.CDLL, device, *args) -> None:
+def _launch(name: str, lib: ctypes.CDLL, device, *args,
+            source: str | None = None) -> None:
+    """Launch the entry point ``name`` of ``lib`` (built from
+    ``csrc/<source>.cu``, ``source`` defaulting to ``name``) on the
+    device's current stream; raise with the CUDA error string on failure."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        msg = getattr(lib, f"{source or name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
@@ -373,3 +385,171 @@ def fold_place_stream(acc: torch.Tensor, idx: torch.Tensor | None,
             n, h, w, c, p, sy, sx, _DTYPE_CODES[acc.dtype])
     count_launch(LAUNCHES, "fold_place_stream")
     return acc, idx
+
+
+def _tap_positions(coeffs: torch.Tensor, s_y: int, s_x: int):
+    """The windows' output rows, (N, P, S_y, 1) f32 ``(y0 + o) + 0.5``, and
+    the horizontal pass's source positions u, (N, P, S_y, S_x), of (N, P,
+    8) coefficients (m00, m01, tx, m10, m11, ty, y0, x0)."""
+    dev = coeffs.device
+    m00, m01, tx, _, _, _, y0, x0 = (coeffs[..., k, None, None]
+                                     for k in range(8))
+    yo = (y0 + torch.arange(s_y, dtype=torch.float32, device=dev)[:, None]) \
+        + 0.5
+    xo = (x0 + torch.arange(s_x, dtype=torch.float32, device=dev)) + 0.5
+    return yo, m00 * xo + m01 * yo + tx - 0.5
+
+
+def _taps(q: torch.Tensor, n: int, dtype: torch.dtype):
+    """The two bilinear taps of f32 positions ``q`` along an axis of ``n``:
+    [(index clamped in range, f32 weight max(0, 1 - |q - j|) rounded to
+    ``dtype``, in range)] for j = floor(q) and floor(q) + 1."""
+    j0 = torch.floor(q)
+    taps = []
+    for j in (j0, j0 + 1):
+        weight = (1.0 - (q - j).abs()).clamp(min=0.0).to(dtype).float()
+        valid = (j >= 0) & (j < n)
+        taps.append((j.clamp(0, n - 1).long(), weight, valid))
+    return taps
+
+
+def warp_taps_reference(features: torch.Tensor, coeffs: torch.Tensor,
+                        s_y: int, s_x: int) -> torch.Tensor:
+    """Plain PyTorch version of ``warp_taps`` (same arguments/result): the
+    kernel's algorithm, every output gathering its 2×2 taps; products and
+    sums in f32, rounded to the features' dtype after each pass."""
+    n, h, w, c = features.shape
+    p = coeffs.shape[1]
+    dtype = features.dtype
+    m10, m11, ty = (coeffs[..., k, None, None] for k in (3, 4, 5))
+    yo, u = _tap_positions(coeffs, s_y, s_x)
+    flat = features.reshape(n * h * w, c)
+    base = (torch.arange(n, device=features.device) * (h * w)) \
+        .view(n, 1, 1, 1)
+    zero = torch.zeros((), device=features.device)
+    q = []
+    for xi, wx, valid_x in _taps(u, w, dtype):
+        # pass 1 at the tap's source column (the two-pass approximation;
+        # an out-of-range tap's value is masked)
+        v = m10 * (xi.float() + 0.5) + m11 * yo + ty - 0.5
+        pr = []
+        for yi, wy, valid_y in _taps(v, h, dtype):
+            vals = flat.index_select(0, (base + yi * w + xi).reshape(-1)) \
+                .reshape(n, p, s_y, s_x, c).float()
+            pr.append(torch.where(valid_y[..., None], wy[..., None] * vals,
+                                  zero))
+        tmp = (pr[0] + pr[1]).to(dtype).float()
+        q.append(torch.where(valid_x[..., None], wx[..., None] * tmp, zero))
+    return (q[0] + q[1]).to(dtype)
+
+
+def warp_taps_t_reference(g_wins: torch.Tensor, coeffs: torch.Tensor,
+                          h: int, w: int, joint: bool) -> torch.Tensor:
+    """Plain PyTorch version of ``warp_taps_t`` (same arguments/result):
+    the transpose of ``warp_taps_reference``, written as the scatter of its
+    taps (``index_add_``), where the kernel gathers them. Pass 1 (the
+    horizontal taps) sums in f32 and rounds to the cotangents' dtype; pass 2
+    (the vertical taps at each source column) sums over parts and window
+    rows in f32, and rounds to that dtype unless ``joint``."""
+    n, p, s_y, s_x, c = g_wins.shape
+    dtype = g_wins.dtype
+    dev = g_wins.device
+    m10, m11, ty = (coeffs[..., k, None, None] for k in (3, 4, 5))
+    yo, u = _tap_positions(coeffs, s_y, s_x)
+    zero = torch.zeros((), device=dev)
+    g = g_wins.float()
+    # pass 1: dtmp[n, p, o, x] = sum over a of wx(o, a, x) * g[n, p, o, a]
+    rows = (torch.arange(n * p * s_y, device=dev) * w).view(n, p, s_y, 1)
+    dtmp = torch.zeros((n * p * s_y * w, c), dtype=torch.float32, device=dev)
+    for xi, wx, valid in _taps(u, w, dtype):
+        dtmp.index_add_(0, (rows + xi).reshape(-1), torch.where(
+            valid[..., None], wx[..., None] * g, zero).reshape(-1, c))
+    dtmp = dtmp.to(dtype).float().view(n, p, s_y, w, c)
+    # pass 2: df[n, y, x] = sum over (p, o) of wy(x, p, o, y) * dtmp
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    v = m10 * (xs + 0.5) + m11 * yo + ty - 0.5            # (N, P, S_y, W)
+    pix = (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1, 1) \
+        + xs.long()
+    df = torch.zeros((n * h * w, c), dtype=torch.float32, device=dev)
+    for yi, wy, valid in _taps(v, h, dtype):
+        df.index_add_(0, (pix + yi * w).reshape(-1), torch.where(
+            valid[..., None], wy[..., None] * dtmp, zero).reshape(-1, c))
+    df = df.view(n, h, w, c)
+    return df if joint else df.to(dtype)
+
+
+def _check_taps(name, x, coeffs, ndim):
+    if x.ndim != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-d input, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
+    if coeffs.dtype != torch.float32 or coeffs.ndim != 3 \
+            or tuple(coeffs.shape) != (x.shape[0], coeffs.shape[1], 8) \
+            or (ndim == 5 and coeffs.shape[1] != x.shape[1]):
+        raise ValueError(f"{name}: coeffs must be (N, P, 8) float32, got "
+                         f"{tuple(coeffs.shape)} {coeffs.dtype}")
+
+
+def warp_taps(features: torch.Tensor, coeffs: torch.Tensor, s_y: int,
+              s_x: int) -> torch.Tensor:
+    """The windowed two-pass warp of every part, from its taps.
+
+    Args:
+      features: (N, H, W, C), float32 or bfloat16.
+      coeffs: (N, P, 8) f32 rows (m00, m01, tx, m10, m11, ty, y0, x0): the
+        inverse affine with its translation scaled to the feature
+        resolution, and the window's start.
+      s_y, s_x: the window's size.
+
+    Returns:
+      (N, P, S_y, S_x, C) in the features' dtype: ``ops.warp._warp_win``'s
+      windows (the same taps, weights and roundings; the banded products'
+      f32 sums may differ in the last bit).
+    """
+    _check_taps("warp_taps", features, coeffs, 4)
+    n, h, w, c = features.shape
+    p = coeffs.shape[1]
+    _refuse_grad("warp_taps", (features, coeffs))
+    if not _on_card("warp_taps", (features, coeffs), c):
+        return warp_taps_reference(features, coeffs, s_y, s_x)
+    out = torch.empty((n, p, s_y, s_x, c), dtype=features.dtype,
+                      device=features.device)
+    lib = _kernel_lib("warp_taps", 3, 8)
+    _launch("warp_taps", lib, features.device,
+            features.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+            n, h, w, c, p, s_y, s_x, _DTYPE_CODES[features.dtype])
+    count_launch(LAUNCHES, "warp_taps")
+    return out
+
+
+def warp_taps_t(g_wins: torch.Tensor, coeffs: torch.Tensor, h: int, w: int,
+                joint: bool) -> torch.Tensor:
+    """Transpose of ``warp_taps``: window cotangents → feature gradient,
+    summed over the parts.
+
+    Args:
+      g_wins: (N, P, S_y, S_x, C) window cotangents, float32 or bfloat16.
+      coeffs: (N, P, 8) f32, as for ``warp_taps``.
+      h, w: the feature map's size.
+      joint: f32 gradient summed over (part, window row) in f32 (the
+        windows' backward); else rounded to the cotangents' dtype.
+
+    Returns:
+      (N, H, W, C), f32 if ``joint`` else in g's dtype.
+    """
+    _check_taps("warp_taps_t", g_wins, coeffs, 5)
+    n, p, s_y, s_x, c = g_wins.shape
+    _refuse_grad("warp_taps_t", (g_wins, coeffs))
+    if not _on_card("warp_taps_t", (g_wins, coeffs), c):
+        return warp_taps_t_reference(g_wins, coeffs, h, w, joint)
+    out = torch.empty((n, h, w, c),
+                      dtype=torch.float32 if joint else g_wins.dtype,
+                      device=g_wins.device)
+    lib = _kernel_lib("warp_taps", 3, 9, "warp_taps_t")
+    _launch("warp_taps_t", lib, g_wins.device,
+            g_wins.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+            n, h, w, c, p, s_y, s_x, _DTYPE_CODES[g_wins.dtype], int(joint),
+            source="warp_taps")
+    count_launch(LAUNCHES, "warp_taps_t")
+    return out

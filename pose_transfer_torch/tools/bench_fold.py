@@ -28,9 +28,11 @@ gradient. Experiments instead of variants:
   3072): the chunks, ms per call, peak device memory of each, the
   ``fold_place`` / ``fold_route`` launches of one call, and whether output
   and gradient equal the first cap's.
-- ``ramp``: the windowed warps of the parts (the production path, which
-  builds the dense banded weights and multiplies by them), the weights'
-  build alone and the two products on prebuilt weights.
+- ``ramp``: the windowed warps of the parts on the dense banded weights
+  (built in the call, as the CPU path does), the weights' build alone and
+  the two products on prebuilt weights; then the ``taps`` leg, the card's
+  path: ``warp_taps`` and ``warp_taps_t`` on the same windows and on the
+  full map, with their byte bounds.
 - ``joint`` and ``joint_bwd``: the layout in which the windowed warp's
   (transposed) two passes hand over their intermediate.
 
@@ -108,14 +110,18 @@ def time_call(fn, iters: int, warmup: int, device) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _windows(feats, warps, masks):
-    """The placement kernel's windows of the non-body parts:
-    (masks_r, sel, y0, x0, s_y, s_x) with y0, x0 (N, P)."""
+def _windows(feats, warps, masks, static_empty=()):
+    """The windows of the non-body parts not in ``static_empty``: the
+    placement kernel's where the shape has them, else the (h/2, w/2) ones
+    of the XLA-style placement: (masks_r, sel, y0, x0, s_y, s_x) with y0,
+    x0 (N, T)."""
     h, w = feats.shape[1:3]
-    s_y, s_x = W._kernel_window_sizes(h, w)
+    sizes = W._kernel_window_sizes(h, w)
+    s_y, s_x = sizes or (h // 2, w // 2)
     masks_r = W.resize_bilinear(masks.to(feats.dtype), (h, w))
-    y0, x0, _, _ = W._support_windows(masks_r, s_y, s_x, WF.X_ALIGN)
-    sel = list(W._place_actives(warps.shape[1], ()))
+    y0, x0, _, _ = W._support_windows(masks_r, s_y, s_x,
+                                      WF.X_ALIGN if sizes else 1)
+    sel = list(W._place_actives(warps.shape[1], static_empty))
     return masks_r, sel, y0, x0, s_y, s_x
 
 
@@ -309,17 +315,29 @@ def variant_fold(variant: str, mode: str, feats, warps, masks, image_size,
     return call
 
 
-def ramp(feats, warps, masks, image_size, iters, warmup) -> list[dict]:
-    """The windowed warps with their banded weights built in the call
-    (production), the weights' build alone, and the products on prebuilt
-    weights; the last two at a probe batch whose weights fit
-    ``RAMP_PROBE_GB``."""
+def taps_bytes(n, h, w, c, p, s_y, s_x, itemsize, out_itemsize) -> int:
+    """Least bytes of one ``warp_taps`` or ``warp_taps_t`` launch: each
+    input read once, each output written once; the feature map's elements
+    take ``out_itemsize`` bytes (f32 for ``warp_taps_t`` with ``joint``)."""
+    wins = n * p * s_y * s_x * c * itemsize
+    return wins + n * h * w * c * out_itemsize + 32 * n * p
+
+
+def ramp(feats, warps, masks, image_size, iters, warmup,
+         static_empty=()) -> list[dict]:
+    """The windowed warps of the parts on the banded products with their
+    weights built in the call (``ms_fused``), the weights' build alone and
+    the products on prebuilt weights (the last two at a probe batch whose
+    weights fit ``RAMP_PROBE_GB``); then the ``taps`` leg:
+    ``warp_taps`` and ``warp_taps_t`` on the same call's windows and on the
+    full map (the body's and the scan's call), with their byte bounds. The parts in ``static_empty`` are left out, as the fold leaves
+    them out."""
     device = feats.device
     n, h, w, c = feats.shape
-    _, sel, y0, x0, s_y, s_x = _windows(feats, warps, masks)
+    _, sel, y0, x0, s_y, s_x = _windows(feats, warps, masks, static_empty)
     wp, yy, xx = warps[:, sel], y0[:, sel], x0[:, sel]
     with torch.no_grad():
-        ms_fused = time_call(lambda: W._warp_win(
+        ms_fused = time_call(lambda: W._warp_win_banded(
             feats, wp, yy, xx, s_y, s_x, image_size), iters, warmup, device)
         lines = [{"experiment": "ramp", "leg": "fused", "batch": n,
                   "ms_fused": ms_fused}]
@@ -343,6 +361,8 @@ def ramp(feats, warps, masks, image_size, iters, warmup) -> list[dict]:
             tmp = tmp.reshape(nb, w, p, s_y, c).permute(0, 2, 3, 1, 4)
             return torch.matmul(wx, tmp)
         ms_dots = time_call(dots, iters, warmup, device)
+        weights_gb = (wy.numel() + wx.numel()) * wy.element_size() / 2**30
+        del wy, wx
     lines.append({
         "experiment": "ramp", "batch": n, "probe_batch": nb,
         "shape": [h, w, c], "window": [s_y, s_x], "ms_fused": ms_fused,
@@ -351,8 +371,67 @@ def ramp(feats, warps, masks, image_size, iters, warmup) -> list[dict]:
         "ms_fused_per_sample": ms_fused / n,
         "ms_dots_per_sample": ms_dots / nb,
         "ms_weight_build_per_sample": ms_weights / nb,
-        "weights_gb": (wy.numel() + wx.numel()) * wy.element_size() / 2**30,
-        "backend": device.type})
+        "weights_gb": weights_gb, "backend": device.type})
+    return lines + taps(feats, warps, masks, image_size, iters, warmup,
+                        static_empty)
+
+
+def taps(feats, warps, masks, image_size, iters, warmup,
+         static_empty=()) -> list[dict]:
+    """The ``taps`` leg of the ramp experiment: ms per launch of
+    ``warp_taps`` and ``warp_taps_t`` on the windowed call (all the
+    non-body parts' windows, ``_windows``, where the stage is windowable;
+    the transpose joint, f32 out) and on the full map (one part, as the
+    body and the scan call them; the transpose rounded to the dtype), the
+    byte bound of each at 3.35 TB/s, the plain versions' ms (one call each)
+    and the largest difference from the banded products. The launches run
+    back to back, so their inputs are warm in L2 where they fit
+    (``chip_smoke.py`` phase 3 times them cold)."""
+    device = feats.device
+    n, h, w, c = feats.shape
+    item = feats.element_size()
+    calls = []
+    if W._windowable(h, w):
+        _, sel, y0, x0, s_y, s_x = _windows(feats, warps, masks,
+                                            static_empty)
+        calls.append(("windows", warps[:, sel], y0[:, sel], x0[:, sel], s_y,
+                      s_x, True))
+    zero = torch.zeros((n, 1), dtype=torch.int64, device=device)
+    calls.append(("full", warps[:, :1], zero, zero, h, w, False))
+    rng = np.random.default_rng(1)
+    lines = []
+    with torch.no_grad():
+        for name, wp, yy, xx, s_y, s_x, joint in calls:
+            p = wp.shape[1]
+            co = W._tap_coeffs(wp, h, w, image_size, yy, xx)
+            g = torch.tensor(rng.standard_normal((n, p, s_y, s_x, c)),
+                             dtype=torch.float32).to(feats.dtype).to(device)
+            ms = time_call(lambda: WF.warp_taps(feats, co, s_y, s_x), iters,
+                           warmup, device)
+            ms_t = time_call(lambda: WF.warp_taps_t(g, co, h, w, joint),
+                             iters, warmup, device)
+            # the plain versions on the same device, once each
+            ms_plain = time_call(lambda: WF.warp_taps_reference(
+                feats, co, s_y, s_x), 1, 1, device)
+            ms_plain_t = time_call(lambda: WF.warp_taps_t_reference(
+                g, co, h, w, joint), 1, 1, device)
+            diff = (WF.warp_taps(feats, co, s_y, s_x).float()
+                    - W._warp_win_banded(feats, wp, yy, xx, s_y, s_x,
+                                         image_size).float()).abs().max()
+            bound = taps_bytes(n, h, w, c, p, s_y, s_x, item, item) / 3.35e9
+            bound_t = taps_bytes(n, h, w, c, p, s_y, s_x, item,
+                                 4 if joint else item) / 3.35e9
+            lines.append({
+                "experiment": "ramp", "leg": "taps", "call": name,
+                "batch": n, "shape": [h, w, c], "parts": p,
+                "window": [s_y, s_x], "joint": joint, "l2": "warm",
+                "ms_taps": ms, "ms_taps_t": ms_t,
+                "bound_ms_taps": bound, "bound_ms_taps_t": bound_t,
+                "roofline_taps": 100 * bound / ms,
+                "roofline_taps_t": 100 * bound_t / ms_t,
+                "ms_plain": ms_plain, "ms_plain_t": ms_plain_t,
+                "max_abs_diff_banded": diff.item(),
+                "backend": device.type})
     return lines
 
 
@@ -465,6 +544,9 @@ def main(argv=None) -> int:
                      else int(cap)} for cap in args.caps.split(",")]
         lines, _ = batchchunk(feats, warps, masks, image_size, settings,
                               args.iters, args.warmup, args.pose_dim)
+    elif args.experiment == "ramp":
+        lines = ramp(feats, warps, masks, image_size, args.iters,
+                     args.warmup, static_empty_parts(args.pose_dim))
     elif args.experiment is not None:
         lines = exp[args.experiment](feats, warps, masks, image_size,
                                      args.iters, args.warmup)

@@ -235,6 +235,32 @@ def test_bench_fold_variant_on_cpu(capsys):
     assert torch.equal(fn["xla"](), fn["kernel"]())
 
 
+def test_bench_fold_ramp_on_cpu(capsys):
+    """The ramp experiment's banded legs and its taps leg (the plain tap
+    versions on the CPU): the windowed call (its transpose joint, f32 out)
+    and the full map (its transpose in bf16, as the fold's backward calls
+    them), with their byte bounds, the bf16 taps equal to the banded
+    products."""
+    lines = _bench_lines(capsys, "--experiment", "ramp")
+    assert [ln.get("leg") for ln in lines] == ["fused", None, "taps", "taps"]
+    assert lines[1]["window"] == [32, 48] and lines[1]["ms_fused"] > 0
+    for ln, call, parts, window, joint in zip(
+            lines[2:], ("windows", "full"), (9, 1), ([32, 48], [64, 64]),
+            (True, False)):
+        assert ln["call"] == call and ln["parts"] == parts
+        assert ln["window"] == window and ln["shape"] == [64, 64, 64]
+        assert ln["joint"] is joint
+        assert ln["ms_taps"] > 0 and ln["ms_taps_t"] > 0
+        assert ln["ms_plain"] > 0 and ln["ms_plain_t"] > 0
+        bound = bench_fold.taps_bytes(2, 64, 64, 64, parts, *window, 2,
+                                      2) / 3.35e9
+        bound_t = bench_fold.taps_bytes(2, 64, 64, 64, parts, *window, 2,
+                                        4 if joint else 2) / 3.35e9
+        assert ln["bound_ms_taps"] == pytest.approx(bound)
+        assert ln["bound_ms_taps_t"] == pytest.approx(bound_t)
+        assert ln["max_abs_diff_banded"] == 0.0
+
+
 def test_bench_fold_needs_a_card_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --device cuda works")
