@@ -7,8 +7,9 @@ one process:
 For each seed, the program as a run drives it (``run.execute`` with a
 short window) and the numbers it compares; for each control seed, the
 same numbers of the control, the reference put in the program's place
-with its convolutions in float8 (``check.fp8``), and for a training cell
-of the planted faults in ``VARIANTS``. One JSON line per reading.
+with its convolutions in float8 (``check.fp8``; the content loss's VGG19
+too), and for a training cell of the planted faults in ``VARIANTS`` that
+its recipe can have. One JSON line per reading.
 The benchmark's own runs do not run this.
 """
 
@@ -40,28 +41,39 @@ VARIANTS = {
     "half_batch": lambda n: {"loss_rows": n // 2},
     # the generator's Adam at ten times its rate
     "gen_lr10": lambda n: {"gen_lr_scale": 10.0},
+    # the content loss at a 1 × 1 neighbourhood: no neighbour search
+    "nn_area1": lambda n: {"nn_area": 1},
 }
+# the variants that only a recipe with a content layer can have
+CONTENT_ONLY = ("nn_area1",)
 
 
-def train_readings(r: Run, variants=tuple(VARIANTS)) -> dict:
+def variants_of(config: dict) -> list[str]:
+    """The ``VARIANTS`` that configuration ``config``'s recipe can have."""
+    content = config.get("content_loss_layer", "none") != "none"
+    return [v for v in VARIANTS if content or v not in CONTENT_ONLY]
+
+
+def train_readings(r: Run, variants=None) -> dict:
     """{variant: the numbers ``train_steps`` compares} for each of
-    ``variants`` put in the program's place, against the reference."""
+    ``variants`` (by default ``variants_of`` the configuration) put in the
+    program's place, against the reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pool = train_steps._pool(r, r.mix["batch"])
     n = r.mix["compared_steps"]
-    gw = train_steps._host(r.weights("gen"))
-    dw = train_steps._host(r.weights("disc"))
+    weights = {net: train_steps._host(w)
+               for net, w in train_steps._weights(r).items()}
     ref_losses, ref_outs, ref_grads, ref_after = train_steps._reference(
-        r, pool, gw, dw, n)
+        r, pool, weights, n)
     keep = check.kept_leaves(ref_grads)
-    base = {**{"gen." + k: v for k, v in gw.items()},
-            **{"disc." + k: v for k, v in dw.items()}}
+    base = {**{"gen." + k: v for k, v in weights["gen"].items()},
+            **{"disc." + k: v for k, v in weights["disc"].items()}}
     ref_delta = {k: ref_after[k] - base[k] for k in ref_after}
     out = {}
-    for name in variants:
+    for name in variants or variants_of(r.config):
         losses, outs, grads, after = train_steps._reference(
-            r, pool, gw, dw, n, **VARIANTS[name](r.mix["batch"]))
+            r, pool, weights, n, **VARIANTS[name](r.mix["batch"]))
         delta = {k: after[k] - base[k] for k in after}
         out[name] = {
             "output_gap": check.output_gap(outs, ref_outs),
@@ -110,7 +122,7 @@ def main(argv=None) -> int:
         numbers = {n: v for n, v, _ in res["checks"]}
         numbers.update(dict(res["readings"]))
         numbers.update({k: v for k, v in res["info"].items()
-                        if k.endswith("_leaf")})
+                        if k.endswith("_leaf") or k == "reference_peak_bytes"})
         emit("program", seed, numbers)
     for seed in args.control_seeds:
         r = _run(spec, seed, args.seconds)

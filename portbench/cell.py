@@ -17,6 +17,20 @@ REPO = ROOT.parent
 
 # implementation choices a configuration leaves at the program's defaults
 IMPLEMENTATION = ("warp_backend", "warp_place", "warp_windowed")
+# ``GANConfig`` fields that a configuration file sets: the model and its
+# training recipe (the program's default where the file is silent)
+MODEL_KEYS = ("image_size", "pose_dim", "use_input_pose", "warp_skip",
+              "warp_agg", "gen_type", "num_stacks", "compute_dtype",
+              "training_ratio", "learning_rate", "l1_penalty_weight",
+              "gan_penalty_weight", "content_loss_layer",
+              "nn_loss_area_size")
+# keys of a configuration file that describe it and set nothing (and
+# every ``*_parameters`` count)
+DESCRIPTIVE = ("name", "source", "published_as", "num_transforms",
+               "encoder_filters", "decoder_filters", "adam_betas",
+               "published_batch_size", "assumed", "reduced")
+# the run's seeds, in the order ``SeedSequence.spawn`` draws them
+SEEDS = ("gen_weights", "disc_weights", "dropout", "traffic", "vgg_weights")
 
 
 def load_json(path: Path) -> dict:
@@ -46,11 +60,11 @@ class Run:
 
     def seeds(self) -> dict:
         """Independent seeds of the run's weights, dropout draws and
-        traffic, all from ``--seed``."""
-        kids = np.random.SeedSequence(self.seed).spawn(4)
-        names = ("gen_weights", "disc_weights", "dropout", "traffic")
+        traffic, all from ``--seed``. A seed added later goes last:
+        ``spawn(k)`` begins with ``spawn(k - 1)``, so the others stay."""
+        kids = np.random.SeedSequence(self.seed).spawn(len(SEEDS))
         return {n: int(k.generate_state(1, np.uint64)[0] >> 1)
-                for n, k in zip(names, kids)}
+                for n, k in zip(SEEDS, kids)}
 
     def rng(self) -> np.random.Generator:
         return np.random.default_rng(self.seeds()["traffic"])
@@ -70,29 +84,36 @@ class Run:
 
     def program_config(self, batch: int):
         """The program's ``GANConfig`` of this configuration at ``batch``:
-        the model and its recipe; every implementation choice at the
-        program's default."""
+        the model and its recipe (``MODEL_KEYS``); every implementation
+        choice at the program's default. Raises on a key of the file that
+        is neither of ``MODEL_KEYS`` nor descriptive, so that none is
+        dropped unread."""
         import torch
         from pose_transfer_torch.train.engine import GANConfig
         c = self.config
-        return GANConfig(
-            image_size=self.image_size, pose_dim=self.pose_dim,
-            batch_size=batch, use_input_pose=c["use_input_pose"],
-            warp_skip=c["warp_skip"], warp_agg=c["warp_agg"],
-            gen_type=c["gen_type"],
-            compute_dtype=self.compute_dtype,
-            training_ratio=c["training_ratio"],
-            learning_rate=c["learning_rate"],
-            l1_penalty_weight=c["l1_penalty_weight"],
-            gan_penalty_weight=c["gan_penalty_weight"],
-            check_mode=False)
+        unknown = sorted(k for k in c if k not in MODEL_KEYS
+                         and k not in DESCRIPTIVE
+                         and not k.endswith("_parameters"))
+        if unknown:
+            raise ValueError(f"configuration {c.get('name')!r}: the "
+                             f"benchmark passes no key {unknown} to the "
+                             "program")
+        kwargs = {k: c[k] for k in MODEL_KEYS if k in c}
+        if "image_size" in kwargs:
+            kwargs["image_size"] = tuple(kwargs["image_size"])
+        if "compute_dtype" in kwargs:
+            kwargs["compute_dtype"] = getattr(torch, kwargs["compute_dtype"])
+        return GANConfig(batch_size=batch, check_mode=False, **kwargs)
 
     def weights(self, which: str) -> dict:
-        """The benchmark's weights of 'gen' or 'disc', on the device."""
-        from .reference import model
+        """The benchmark's weights of 'gen', 'disc' or 'vgg' (the content
+        loss's VGG19), on the device."""
+        from .reference import content, model
         from .weights import make_weights
-        spec = model.generator_spec(self.image_size, self.pose_dim) \
-            if which == "gen" else model.discriminator_spec(self.pose_dim)
+        spec = {"gen": lambda: model.generator_spec(self.image_size,
+                                                    self.pose_dim),
+                "disc": lambda: model.discriminator_spec(self.pose_dim),
+                "vgg": content.vgg_spec}[which]()
         return make_weights(spec, self.seeds()[f"{which}_weights"],
                             self.device)
 

@@ -88,6 +88,24 @@ def train_step_flops(image_size, pose_dim: int, batch: int) -> int:
     return batch * (disc_phase + gen_phase)
 
 
+def content_flops(image_size, layer: str, batch: int) -> int:
+    """Model FLOPs that a content loss at VGG19 ``layer`` adds to a
+    training step ('none': 0): the VGG19 prefix's convolutions forward on
+    the generated and the target images, and the input gradient on the
+    generated one (the filters are frozen: no weight gradient)."""
+    if layer == "none":
+        return 0
+    from .reference.content import layer_index, layout
+    h, w = image_size
+    per_image = 0
+    for kind, in_ch, out_ch in layout()[:layer_index(layer) + 1]:
+        if kind == "conv":
+            per_image += 2 * h * w * out_ch * in_ch * 9
+        elif kind == "pool":
+            h, w = h // 2, w // 2
+    return 3 * batch * per_image
+
+
 def mfu(flops: float, seconds: float) -> float:
     """Share of the bf16 dense peak, %."""
     return 100.0 * flops / seconds / BF16_FLOPS

@@ -171,6 +171,64 @@ def test_new_cell_found_without_editing_a_file(tmp_path):
     assert {k: v for k, v in after.items() if k in before} == before
 
 
+def test_new_recipe_found_without_editing_a_file(tmp_path):
+    """A configuration with the paper's Full recipe (a VGG19 content loss)
+    reaches the program's ``GANConfig`` and the reference's ``Recipe``
+    from its own files."""
+    shutil.copytree(ROOT, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    pb = tmp_path / "portbench"
+    before = _digest(pb)
+    cfg = json.loads((pb / "configs" / "fashion256.json").read_text())
+    cfg.update({"name": "full", "content_loss_layer": "block1_conv2",
+                "nn_loss_area_size": 5, "l1_penalty_weight": 1.0})
+    (pb / "configs" / "full.json").write_text(json.dumps(cfg))
+    work = json.loads((pb / "workloads" / "fashion256-train-b32.json")
+                      .read_text())
+    work["config"] = "full"
+    (pb / "workloads" / "full-train-b32.json").write_text(json.dumps(work))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "full", "source": "x",
+                             "file": "portbench/configs/full.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "full-train-b32", "config": "full",
+                               "traffic": "train-b32", "chips": 1,
+                               "why": "x"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "fashion256-train-b32" in m.get("workloads", []):
+            m["workloads"].append("full-train-b32")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    code = (
+        "import json, time\n"
+        "from portbench import run\n"
+        "from portbench.cell import Run\n"
+        "from portbench.reference import train\n"
+        "spec = run.cell_spec('full-train-b32')\n"
+        "r = Run(cell=spec['name'], config=spec['config'], mix=spec['mix'],\n"
+        "        limits=spec['work']['limits'], seed=3, seconds=1.0,\n"
+        "        trace=False, device='cpu', t_start=time.perf_counter())\n"
+        "c = r.program_config(spec['mix']['batch'])\n"
+        "rec = train.recipe(spec['config'])\n"
+        "print(json.dumps({'program': [c.content_loss_layer,\n"
+        "  c.nn_loss_area_size, c.l1_penalty_weight, c.batch_size],\n"
+        "  'reference': [rec.content_layer, rec.nn_area, rec.l1_weight],\n"
+        "  'layer': sorted(m['name'] for m in spec['per_layer']),\n"
+        "  'file': run.__file__}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": f"{tmp_path}:{REPO}",
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["file"].startswith(str(tmp_path))
+    assert got["program"] == ["block1_conv2", 5, 1.0, 32]
+    assert got["reference"] == ["block1_conv2", 5, 1.0]
+    assert "train.gen_phase_ms" in got["layer"]
+    after = _digest(pb)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
 def test_exits_without_the_program(tmp_path):
     """A directory of BENCHMARK.json and the benchmark alone runs no
     cell."""

@@ -12,17 +12,22 @@ mask outgrows its window sends a whole fold instance to the full scan),
 so a pool of its own per seed would change the work from seed to seed.
 
 Set-up builds the training state and its step once (the program's
-``create_state`` and ``make_train_step``), loads the benchmark's weights,
+``create_state`` and ``make_train_step``), loads the benchmark's weights
+(with a content layer the VGG19's too, from the seed ``vgg_weights``),
 seeds the dropout draws, and drives the first ``compared_steps`` steps
 through the step's own call on the first triples of the pool (rows that
 all differ). They warm up every shape the window uses. The window then
 runs the same object on the pool in turn until ``--seconds`` have passed
 and ends on a synchronise. A step consumes N·(2·training_ratio + 1)
 images.
+
+The reference follows the configuration's recipe (``reference.train.
+recipe``), which refuses, before set-up, one that it does not compute.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 
@@ -80,25 +85,38 @@ def _first_grads(module, opt, prefix: str) -> dict:
     return _host(out)
 
 
+def _weights(r) -> dict:
+    """The benchmark's weights on the device: {'gen', 'disc'}, and 'vgg'
+    where the recipe has a content layer."""
+    nets = ["gen", "disc"]
+    if r.config.get("content_loss_layer", "none") != "none":
+        nets.append("vgg")
+    return {net: r.weights(net) for net in nets}
+
+
 def run(r) -> Outcome:
     from pose_transfer_torch.train.engine import create_state, make_train_step
 
     batch = r.mix["batch"]
     cfg = r.program_config(batch)
+    ref_train.recipe(r.config)
     r.note_implementation(cfg)
     seeds = r.seeds()
     r.mark("imports")
     pool = _pool(r, batch)
     r.mark("traffic")
-    gw, dw = r.weights("gen"), r.weights("disc")
+    weights = _weights(r)
     r.mark("weights")
     state = create_state(cfg, seed=0, device=r.device)
     r.mark("create_state")
-    state.gen.load_state_dict(gw)
-    state.disc.load_state_dict(dw)
+    state.gen.load_state_dict(weights["gen"])
+    state.disc.load_state_dict(weights["disc"])
+    if "vgg" in weights:
+        state.vgg.load_state_dict(weights["vgg"])
     # the benchmark's copies wait on the host: the device's peak is the
     # program's own
-    gw, dw = _host(gw), _host(dw)
+    weights = {net: _host(w) for net, w in weights.items()}
+    gw, dw = weights["gen"], weights["disc"]
     state.rng.manual_seed(seeds["dropout"])
     step = make_train_step(cfg, state)
 
@@ -137,7 +155,9 @@ def run(r) -> Outcome:
     peak = torch.cuda.max_memory_allocated(r.device) \
         if r.device.type == "cuda" else 0
     images = steps * batch * (2 * cfg.training_ratio + 1)
-    flops = measure.train_step_flops(r.image_size, r.pose_dim, batch) * steps
+    flops = (measure.train_step_flops(r.image_size, r.pose_dim, batch)
+             + measure.content_flops(r.image_size, cfg.content_loss_layer,
+                                     batch)) * steps
     phase_ms = {}
     for name, s, e in marks:
         phase_ms.setdefault(name, []).append(s.elapsed_time(e))
@@ -146,8 +166,9 @@ def run(r) -> Outcome:
     gc.collect()
     if r.device.type == "cuda":
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(r.device)
 
-    ref_losses, ref_outs, ref_grads, ref_after = _reference(r, pool, gw, dw,
+    ref_losses, ref_outs, ref_grads, ref_after = _reference(r, pool, weights,
                                                             n_cmp)
     keep = check.kept_leaves(ref_grads)
     grad_gap, grad_leaf = check.norm_gap(grads, ref_grads, keep)
@@ -158,6 +179,8 @@ def run(r) -> Outcome:
                                     else dw[k[5:]]) for k in ref_after}
     update_gap, update_leaf = check.norm_gap(delta, ref_delta, keep)
     update_gap_net = check.net_gap(delta, ref_delta, keep)
+    ref_peak = torch.cuda.max_memory_allocated(r.device) \
+        if r.device.type == "cuda" else 0
     return Outcome(
         setup_s=setup_s, window=win, memory_peak_bytes=peak,
         attempted=steps, failed=0,
@@ -171,26 +194,29 @@ def run(r) -> Outcome:
                   "flops": flops, "steps": steps},
         info={"steps": steps, "images": images, "counters": counts,
               "grad_gap_leaf": grad_leaf, "update_gap_leaf": update_leaf,
+              "reference_peak_bytes": ref_peak,
               "leaves_left_out": sorted(set(ref_grads) - set(keep)),
               "losses": losses, "reference_losses": ref_losses})
 
 
-def _reference(r, pool, gw, dw, n_steps, q=ref.ident, loss_rows=None,
-               gen_lr_scale=1.0):
-    """The reference's first ``n_steps`` steps from the benchmark's
-    weights, batches and dropout seed, float32 with TF32 off → (losses,
-    generator outputs, first gradients, parameters after the steps),
-    keyed 'gen.' / 'disc.'. The control and the planted faults: ``q`` on
-    the convolutions' operands, the losses over ``loss_rows`` rows, the
-    generator's Adam at ``gen_lr_scale`` × the rate."""
+def _reference(r, pool, weights, n_steps, q=ref.ident, loss_rows=None,
+               gen_lr_scale=1.0, nn_area=None):
+    """The reference's first ``n_steps`` steps of the configuration's
+    recipe from the benchmark's weights (``_weights``, on the host),
+    batches and dropout seed, float32 with TF32 off → (losses, generator
+    outputs, first gradients, parameters after the steps), keyed 'gen.' /
+    'disc.'. The control and the planted faults: ``q`` on the
+    convolutions' operands, the losses over ``loss_rows`` rows, the
+    generator's Adam at ``gen_lr_scale`` × the rate, the content loss's
+    neighbourhood at ``nn_area``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    recipe = ref_train.Recipe(
-        r.image_size, r.pose_dim, r.config["learning_rate"],
-        r.config["l1_penalty_weight"], r.config["gan_penalty_weight"],
-        r.compute_dtype)
-    gp = {k: v.to(r.device) for k, v in gw.items()}
-    dp = {k: v.to(r.device) for k, v in dw.items()}
+    recipe = ref_train.recipe(r.config)
+    if nn_area is not None:
+        recipe = dataclasses.replace(recipe, nn_area=nn_area)
+    gp, dp, vp = ({k: v.to(r.device) for k, v in weights[net].items()}
+                  if net in weights else None
+                  for net in ("gen", "disc", "vgg"))
     gopt = ref_train.Adam(recipe.learning_rate * gen_lr_scale)
     dopt = ref_train.Adam(recipe.learning_rate)
     dropout = torch.Generator(device=r.device)
@@ -202,7 +228,7 @@ def _reference(r, pool, gw, dw, n_steps, q=ref.ident, loss_rows=None,
                 ({k: v[0] for k, v in fake.items()},
                  {k: v[0] for k, v in real.items()}, gen_b)]
         out = ref_train.train_step(gp, dp, gopt, dopt, *prep, recipe,
-                                   dropout, q, loss_rows)
+                                   dropout, q, loss_rows, vp)
         losses.append(out["disc"] + out["gen"])
         outs.append(out["out"].cpu())
         if i == 0:
