@@ -71,12 +71,21 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               random filters, nn_loss of area 5, L1 weight 1.0): one
               warm-up and 3 steps on 'matmul', one warm-up and one step on
               'pallas'; losses finite, both nets' weights moved, the fold
-              kernels' launches counted per step; then nn_loss's f32
-              gradient (the argmin-routed Function) against autograd
-              through its plain primal at a step's own VGG features,
-              bit for bit where one shift is the unique minimum, and to
-              the first minimal shift's routing everywhere, with both
-              versions' times and peak memory
+              kernels' launches counted per step, one nn_loss_fwd and one
+              nn_loss_bwd launch a step; then nn_loss's plain routed code
+              (f32) against autograd through its plain primal at a step's
+              own VGG features, bit for bit where one shift is the unique
+              minimum, and to the first minimal shift's routing
+              everywhere, with both versions' times and peak memory; then
+              the nn_loss kernels (csrc/nn_loss.cu) against that plain
+              code at the benchmark cell's shape (b32, 256²×64, area 5):
+              the loss within 1e-6, the index equal on 99.99 % of the
+              pixels and elsewhere a near tie, the cotangent bit for bit
+              where the index agrees, two calls bit for bit; each
+              kernel's largest error against the plain code, its ms with
+              a cold L2, the plain code's and the least time of its bytes
+              and operations (these launches are left out of the kernels
+              line's counts, which count the main paths' alone)
  10. stacked  the stacked generator (num_stacks 4, fashion-256, bf16)
               behind PoseTransferServer on both backends: a full batch of
               8 and a padded partial batch of 3, 4x the baseline's fold
@@ -199,6 +208,8 @@ from pose_transfer_torch.ops import nn_loss as nn_loss_mod
 from pose_transfer_torch.ops import warp as warp_mod
 from pose_transfer_torch.ops import warp_fused
 from pose_transfer_torch.ops import warp_pallas
+from pose_transfer_torch.ops.launches import (launch_counts,
+                                              reset_launch_counts)
 from pose_transfer_torch.parallel import dryrun
 from pose_transfer_torch.parallel import mesh as pmesh
 from pose_transfer_torch.serve import PoseTransferServer
@@ -431,6 +442,25 @@ def route_bytes(h, c, sy, sx, itemsize, p=PARTS) -> int:
     return itemsize * (2 * n * h * h * c + n * p * sy * sx * c
                        + n * p * sy * sx + n * h * h) \
         + n * h * h * c + 12 * n * p
+
+
+def nn_loss_bytes(n, h, w, c, direction: str, reached: int = 0) -> int:
+    """Least bytes of one nn_loss launch on f32 maps with a uint8 index:
+    the forward reads both maps once and writes the index; the backward
+    reads the prediction and the index, writes the prediction's cotangent
+    and reads the ``reached`` target pixels that the index points at."""
+    if direction == "fwd":
+        return 2 * n * h * w * c * 4 + n * h * w
+    return (2 * n * h * w + reached) * c * 4 + n * h * w
+
+
+def nn_loss_ops(n, h, w, c, area: int, direction: str) -> int:
+    """Operations of one nn_loss launch: the forward a subtract, an abs
+    and an add per channel, shift and pixel; the backward a subtract and a
+    multiply per element."""
+    if direction == "fwd":
+        return 3 * area * area * n * h * w * c
+    return 2 * n * h * w * c
 
 
 def stream_bytes(offs, h, c, sy, sx, itemsize, with_idx) -> int:
@@ -1008,14 +1038,12 @@ def check_images(out, n, what):
 
 
 def _reset_counts() -> None:
-    for counts in (warp_fused.LAUNCHES, warp_pallas.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_launch_counts()
     warp_mod.COUNTS["scan_fallback"] = 0
 
 
 def _counts() -> dict:
-    return {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES,
+    return {**launch_counts(),
             "scan_fallback": warp_mod.COUNTS["scan_fallback"]}
 
 
@@ -1668,10 +1696,10 @@ def _time_grad(fn, x, y, iters=5) -> tuple[float, float]:
     return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def phase_recipe(card: str) -> dict:
+def phase_recipe(card: str, flush) -> tuple[dict, dict]:
     """The full_fasion recipe's step at full width on both backends, then
-    nn_loss's gradient on the card; returns the fold kernel launches of
-    the timed steps."""
+    nn_loss's kernels on the card; returns the kernel launches of the timed
+    steps and the nn_loss kernels' summaries for the kernels line."""
     total = {}
     for backend, steps in (("matmul", TRAIN_STEPS), ("pallas", 1)):
         cfg = _fashion(backend, **RECIPE)
@@ -1682,11 +1710,15 @@ def phase_recipe(card: str) -> dict:
             "the state's VGG19 is missing or not frozen")
         _check_step_launches(run["counts"], backend, steps, 1,
                              f"recipe {backend}")
+        check(run["counts"]["nn_loss_fwd"] == steps
+              and run["counts"]["nn_loss_bwd"] == steps,
+              f"recipe {backend}: nn_loss launches {run['counts']}")
         emit({"phase": "recipe", "backend": backend, "card": card,
               "batch": BATCH, "dtype": "bfloat16", "steps": steps, **RECIPE,
               "losses": {"gen [total, ll, ad]": run["rows"]["gen"],
                          "disc [total, true, fake]": run["rows"]["disc"]},
-              "launches": {k: run["counts"][k] for k in PER_STEP[backend]},
+              "launches": {k: run["counts"][k] for k in
+                           (*PER_STEP[backend], *nn_loss_mod.LAUNCHES)},
               "scan_fallbacks": run["counts"]["scan_fallback"],
               "step_ms": run["step_ms"], "peak_mem_gb": run["peak_mem_gb"]})
         for k, v in run["counts"].items():
@@ -1695,28 +1727,64 @@ def phase_recipe(card: str) -> dict:
             nn_case = (st.vgg, run["out"], run["gen_batch"], cfg)
         del st, run
     _check_nn_loss(*nn_case)
-    return total
+    # the kernels' own check and timing: not the main path's launches
+    return total, _nn_loss_kernels(*nn_case, flush)
+
+
+class _PlainNNLoss(torch.autograd.Function):
+    """``NNLoss`` on its plain code (``_forward_plain``,
+    ``_backward_plain``), which CUDA tensors no longer take: the oracle
+    the kernels are held to."""
+
+    @staticmethod
+    def forward(ctx, p, t, nh, nw):
+        loss, idx = nn_loss_mod._forward_plain(p, t, nh, nw)
+        ctx.save_for_backward(p, t, idx)
+        ctx.area = (nh, nw)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        p, t, idx = ctx.saved_tensors
+        d_pred, _ = nn_loss_mod._backward_plain(p, t, idx, g, *ctx.area,
+                                                False)
+        return d_pred, None, None, None
+
+
+def _content_features(vgg, out_gen, gen_batch, cfg, copies=1):
+    """The generated and target images' content features (f32, NHWC),
+    the batch repeated ``copies`` times with a little noise added to
+    every copy after the first, so that no two rows are equal."""
+    prep = batch_preparer(cfg, "cuda")
+    layer = vgg_mod.get_layer_ind(cfg.content_loss_layer)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.no_grad():
+        target = prep(gen_batch)["target"].float()
+        images = [out_gen.float(), target]
+        if copies > 1:
+            images = [torch.cat([x] + [
+                (x + 0.02 * torch.randn(x.shape, generator=gen,
+                                        device="cuda")).clamp(-1.0, 1.0)
+                for _ in range(copies - 1)]) for x in images]
+        return tuple(vgg_mod.extract_features(vgg, x, layer).contiguous()
+                     for x in images)
 
 
 def _check_nn_loss(vgg, out_gen, gen_batch, cfg) -> None:
-    """nn_loss (area 5) at a step's own block1_conv2 features (f32, N = 8,
-    256², 64 channels): the Function's gradient of the generated image's
-    features against autograd through the plain primal, bit for bit at
-    every pixel whose minimum one shift alone reaches (at a tie autograd
-    splits the cotangent, the Function routes it to the first shift: both
-    valid subgradients), and at every pixel against −sign(ref − pred) of
-    the first shift that reaches the minimum, scaled by 1/(N·H·W); the
-    share of tied pixels; both versions' forward-and-backward times and
-    peak memory."""
-    prep = batch_preparer(cfg, "cuda")
-    layer = vgg_mod.get_layer_ind(cfg.content_loss_layer)
-    with torch.no_grad():
-        target = prep(gen_batch)["target"]
-        f_gen = vgg_mod.extract_features(vgg, out_gen, layer)
-        f_tgt = vgg_mod.extract_features(vgg, target, layer)
+    """nn_loss's plain routed code (area 5) at a step's own block1_conv2
+    features (f32, N = 8, 256², 64 channels): its gradient of the
+    generated image's features against autograd through the plain
+    primal, bit for bit at every pixel whose minimum one shift alone
+    reaches (at a tie autograd splits the cotangent, the routed backward
+    sends it to the first shift: both valid subgradients), and at every
+    pixel against −sign(ref − pred) of the first shift that reaches the
+    minimum, scaled by 1/(N·H·W); the share of tied pixels; both
+    versions' forward-and-backward times and peak memory. The kernels are
+    held to this code in ``_nn_loss_kernels``."""
+    f_gen, f_tgt = _content_features(vgg, out_gen, gen_batch, cfg)
     a = cfg.nn_loss_area_size
     grads, times = {}, {}
-    for name, fn in (("function", nn_loss_mod.nn_loss),
+    for name, fn in (("function", _PlainNNLoss.apply),
                      ("plain", nn_loss_mod.nn_loss_reference)):
         x = f_gen.clone().requires_grad_(True)
         val = fn(x, f_tgt, a, a)
@@ -1741,7 +1809,7 @@ def _check_nn_loss(vgg, out_gen, gen_batch, cfg) -> None:
         rule = rule / (n * h * w)
     (v_fn, g_fn), (v_plain, g_plain) = grads["function"], grads["plain"]
     differ = (g_fn != g_plain).any(-1)
-    res = {"phase": "nn_loss_vs_plain", "shape": list(f_gen.shape),
+    res = {"phase": "nn_loss_plain_vs_autograd", "shape": list(f_gen.shape),
            "dtype": str(f_gen.dtype).split(".")[-1], "area": a,
            "value": v_fn, "value_plain": v_plain,
            "tied_pixel_share": 1.0 - unique.float().mean().item(),
@@ -1759,6 +1827,117 @@ def _check_nn_loss(vgg, out_gen, gen_batch, cfg) -> None:
           "nn_loss gradient differs from autograd where the min is unique")
     check(res["pixels_off_first_shift_rule"] == 0,
           "nn_loss gradient does not route to the first minimal shift")
+
+
+# the nn_loss kernels against the plain code: the loss to f32 rounding
+# (the channels and the mean sum in another order), the index equal on
+# NN_INDEX_SHARE of the pixels and elsewhere a near tie (the two shifts'
+# plain norms within NN_TIE_ULPS ulps of the larger), the cotangent bit for
+# bit where the index agrees; at the benchmark cell's shape
+NN_LOSS_RTOL, NN_INDEX_SHARE, NN_TIE_ULPS = 1e-6, 0.9999, 4
+NN_CELL_COPIES = 4            # b32 from the recipe's b8 step
+
+
+def _nn_reached(idx, a) -> int:
+    """The target pixels inside the map that some pixel's saved shift
+    reads."""
+    n, h, w = idx.shape
+    k = idx.long()
+    gy = torch.arange(h, device=idx.device)[:, None] + k // a - a // 2
+    gx = torch.arange(w, device=idx.device)[None, :] + k % a - a // 2
+    inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+    flat = (torch.arange(n, device=idx.device)[:, None, None] * h + gy) \
+        * w + gx
+    return int(torch.unique(flat[inside]).numel())
+
+
+def _nn_loss_kernels(vgg, out_gen, gen_batch, cfg, flush) -> dict:
+    """The forward and backward kernels against the plain code at the
+    benchmark cell's shape (N = 32, 256²×64 f32, area 5, the features of
+    the recipe step's images), each launch's time with a cold L2, the
+    plain code's, and the least time of its bytes and operations
+    (``nn_loss_bytes``, ``nn_loss_ops``; the backward's bytes count the
+    target pixels its index reaches, ``shape_bound_ms`` none of them, as
+    the benchmark's shape-only roofline counts them)."""
+    f_gen, f_tgt = _content_features(vgg, out_gen, gen_batch, cfg,
+                                     NN_CELL_COPIES)
+    a = cfg.nn_loss_area_size
+    n, h, w, c = f_gen.shape
+    one = torch.ones((), device="cuda")
+    scale = one / (n * h * w)
+    loss, idx = nn_loss_mod.nn_loss_fwd(f_gen, f_tgt, a, a)
+    d_pred = nn_loss_mod.nn_loss_bwd(f_gen, f_tgt, idx, scale, a, a)
+    again = nn_loss_mod.nn_loss_fwd(f_gen, f_tgt, a, a)
+    want, want_idx = nn_loss_mod._forward_plain(f_gen, f_tgt, a, a)
+    want_d, _ = nn_loss_mod._backward_plain(f_gen, f_tgt, want_idx, one, a,
+                                            a, False)
+    same = idx == want_idx
+    with torch.no_grad():
+        pad = nn_loss_mod._pad_gt(f_tgt, a, a)
+        k_got, k_want = idx[~same].long(), want_idx[~same].long()
+        rows = torch.nonzero(~same)
+        worst_ulps = 0.0
+        if len(rows):
+            def norm_at(k):
+                i, j = k // a, k % a
+                nn_, yy, xx = rows.unbind(1)
+                return (pad[nn_, yy + i, xx + j] - f_gen[nn_, yy, xx]) \
+                    .abs().sum(-1)
+            na, nb = norm_at(k_got), norm_at(k_want)
+            worst_ulps = ((na - nb).abs() / (torch.maximum(na, nb)
+                                             * 2.0 ** -23)).max().item()
+    rel = abs(loss.item() - want.item()) / abs(want.item())
+    bits_equal = bool(torch.equal(d_pred[same], want_d[same]))
+    # each kernel's largest |kernel − plain| over its float output: the
+    # forward's one loss; the backward's every element, those of the
+    # pixels whose index differs included
+    errs = {"fwd": abs(loss.item() - want.item()),
+            "bwd": (d_pred - want_d).abs().max().item()}
+    reached = _nn_reached(idx, a)
+    iters = 5
+    out = {}
+    for direction, kernel, plain in (
+            ("fwd", lambda: nn_loss_mod.nn_loss_fwd(f_gen, f_tgt, a, a),
+             lambda: nn_loss_mod._forward_plain(f_gen, f_tgt, a, a)),
+            ("bwd", lambda: nn_loss_mod.nn_loss_bwd(f_gen, f_tgt, idx, scale,
+                                                    a, a),
+             lambda: nn_loss_mod._backward_plain(f_gen, f_tgt, want_idx, one,
+                                                 a, a, False))):
+        ops = nn_loss_ops(n, h, w, c, a, direction)
+        bound = _bound(nn_loss_bytes(n, h, w, c, direction, reached), ops)
+        shape_ms = _bound(nn_loss_bytes(n, h, w, c, direction), ops)[
+            "bound_ms"]
+        ms = time_cuda(kernel, iters, flush)
+        out[f"nn_loss_{direction}"] = {
+            "ms": ms, "plain_ms": time_cuda(plain, iters, flush),
+            "max_abs_err": errs[direction],
+            "roofline_pct": 100.0 * bound["bound_ms"] / ms,
+            "shape_bound_ms": shape_ms, **bound}
+    emit({"phase": "nn_loss_kernels", "shape": [n, h, w, c], "area": a,
+          "value": loss.item(), "value_plain": want.item(),
+          "value_rel_err": rel, "value_abs_err": errs["fwd"],
+          "cotangent_max_abs_err": errs["bwd"],
+          "index_equal_share": same.float().mean().item(),
+          "index_differing": int((~same).sum().item()),
+          "index_differing_worst_ulps": worst_ulps,
+          "target_pixels_reached_share": reached / (n * h * w),
+          "cotangent_bits_equal_where_index_agrees": bits_equal,
+          "repeat_bitwise": bool(torch.equal(loss, again[0])
+                                 and torch.equal(idx, again[1])),
+          **{k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "bytes_ms",
+                                   "ops_ms", "bound_by", "roofline_pct",
+                                   "shape_bound_ms")}
+             for k, v in out.items()}})
+    check(rel <= NN_LOSS_RTOL, f"nn_loss kernel value off by {rel}")
+    check(same.float().mean().item() >= NN_INDEX_SHARE,
+          "nn_loss kernel index differs on too many pixels")
+    check(worst_ulps <= NN_TIE_ULPS,
+          f"nn_loss kernel index differs off a near tie ({worst_ulps} ulps)")
+    check(bits_equal, "nn_loss kernel cotangent differs where the index "
+          "agrees")
+    check(bool(torch.equal(loss, again[0]) and torch.equal(idx, again[1])),
+          "nn_loss kernel not repeatable")
+    return out
 
 
 def phase_stacked(card: str) -> dict:
@@ -1953,7 +2132,7 @@ def phase_cli_recipe(card: str) -> dict:
 HTTP_REQUESTS, HTTP_CLIENTS = 384, 16
 KERNELS = ("fold_place", "fold_place_idx", "fold_route", "warp_fold",
            "warp_fold_idx", "warp_fold_bwd", "fold_place_stream",
-           "warp_taps", "warp_taps_t")
+           "warp_taps", "warp_taps_t", "nn_loss_fwd", "nn_loss_bwd")
 # warp_feature_single against grid_sample (f64 on a normalized affine
 # grid): the same bilinear function, the port's f32 positions rounded. A
 # position of magnitude up to 2h carries an error of a few f32 ulps of 2h
@@ -2782,7 +2961,6 @@ def main(argv=None) -> int:
             rand["max_abs_err"], on_main["max_abs_err"]),
             **{f"{k}_main": on_main[k] for k in ("ms", "plain_ms",
                                                  "bound_ms")}}
-    del flush
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_fold_grad()
@@ -2794,7 +2972,10 @@ def main(argv=None) -> int:
     phase_fold_h36m()
     phase_pallas_h36m()
     # this slice's paths; each sums its own launches
-    new_paths = [phase_recipe(smi), phase_stacked(smi)]
+    recipe_launches, nn_k = phase_recipe(smi, flush)
+    main_k.update(nn_k)
+    del flush
+    new_paths = [recipe_launches, phase_stacked(smi)]
     phase_unet(smi)
     new_paths.append(phase_cli_recipe(smi))
     # the HTTP front and the msgpack resume on JAX-layout files,
@@ -2813,7 +2994,7 @@ def main(argv=None) -> int:
     new_paths.append(phase_data_parallel(smi))
 
     def new(name):
-        return sum(p[name] for p in new_paths)
+        return sum(p.get(name, 0) for p in new_paths)
 
     def taps_launches(name):
         # every main path of the fashion and h36m phases, both backends
@@ -2845,12 +3026,17 @@ def main(argv=None) -> int:
         ("warp_taps", taps_launches("warp_taps"), tpu + "warp.py:416", []),
         ("warp_taps_t", taps_launches("warp_taps_t"), tpu + "warp.py:512",
          [tpu + "warp.py:332"]),
+        # no TPU kernel: the chain of shifts that XLA fuses under jit
+        # (nn_loss.py:96, its custom VJP's forward; :114, its backward)
+        ("nn_loss_fwd", new("nn_loss_fwd"), tpu + "nn_loss.py:96", []),
+        ("nn_loss_bwd", new("nn_loss_bwd"), tpu + "nn_loss.py:114", []),
     )
     kernels = []
     for name, launches, replaces, also in rows:
         m = main_k[name]
-        # warp_taps.cu holds both tap kernels
-        source = "warp_taps" if name == "warp_taps_t" else name
+        # warp_taps.cu holds both tap kernels, nn_loss.cu both nn_loss ones
+        source = {"warp_taps_t": "warp_taps", "nn_loss_fwd": "nn_loss",
+                  "nn_loss_bwd": "nn_loss"}.get(name, name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pose_transfer_torch/csrc/{source}.cu",

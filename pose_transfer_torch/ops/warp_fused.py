@@ -34,7 +34,8 @@ Three pieces for each kernel, as for every kernel of the port:
 - the plain PyTorch version (``*_reference``), same semantics.
 - ``LAUNCHES``: how many times each CUDA kernel was launched
   (``fold_place_idx`` counts the ``fold_place`` launches that emitted the
-  argmax, the ones a backward routes through).
+  argmax, the ones a backward routes through), registered with
+  ``ops.launches``.
 
 Differences from the TPU kernels: the argmax is int8 (the TPU kept it in
 bf16 only because Mosaic scalarizes int8 selects), ``zero_nb`` is bool, and
@@ -43,10 +44,9 @@ there is no VMEM budget — only the shape rules of ``supported``.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
+
+from .launches import count_launch, kernel_lib, launch, register
 
 # Window x-start alignment. The TPU kernel needed sublane-aligned dynamic
 # starts; the port keeps the rule so that the same stages and batches take
@@ -54,16 +54,9 @@ import torch
 X_ALIGN = 16
 RCH = 8          # window rows must be a multiple of this
 
-LAUNCHES = {"fold_place": 0, "fold_place_idx": 0, "fold_route": 0,
-            "fold_place_stream": 0, "warp_taps": 0, "warp_taps_t": 0}
-_count_lock = threading.Lock()    # replicas launch from a thread each
-
-
-def count_launch(counts: dict, *names: str) -> None:
-    """Add one launch to each of ``names`` in ``counts``."""
-    with _count_lock:
-        for name in names:
-            counts[name] += 1
+LAUNCHES = register({"fold_place": 0, "fold_place_idx": 0, "fold_route": 0,
+                     "fold_place_stream": 0, "warp_taps": 0,
+                     "warp_taps_t": 0})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -244,37 +237,6 @@ def _on_card(name, tensors, c):
     return True
 
 
-def _kernel_lib(name: str, n_ptrs: int, n_ints: int,
-                entry: str | None = None) -> ctypes.CDLL:
-    """The built ``csrc/<name>.cu`` with its C signatures declared: the
-    entry point ``entry(ptrs..., ints..., stream)`` (``entry`` defaults to
-    ``name``) and the file's ``<name>_error_string``."""
-    from .. import _build
-    lib = _build.load(name)
-    fn = getattr(lib, entry or name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
-            + [ctypes.c_void_p]
-        err = getattr(lib, f"{name}_error_string")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
-    return lib
-
-
-def _launch(name: str, lib: ctypes.CDLL, device, *args,
-            source: str | None = None) -> None:
-    """Launch the entry point ``name`` of ``lib`` (built from
-    ``csrc/<source>.cu``, ``source`` defaulting to ``name``) on the
-    device's current stream; raise with the CUDA error string on failure."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = getattr(lib, f"{source or name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg}")
-
-
 def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
                zero_nb: torch.Tensor, offs: torch.Tensor,
                emit_idx: bool = True):
@@ -302,15 +264,15 @@ def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
     if not _on_card("fold_place", tensors, c):
         return fold_place_reference(body, wins, mwins, zero_nb, offs,
                                     emit_idx)
-    lib = _kernel_lib("fold_place", 7, 9)
+    lib = kernel_lib("fold_place", 7, 9)
     out = torch.empty_like(body)
     idx = torch.empty(body.shape, dtype=torch.int8, device=body.device) \
         if emit_idx else None
-    _launch("fold_place", lib, body.device,
-            body.data_ptr(), wins.data_ptr(), mwins.data_ptr(),
-            zero_nb.data_ptr(), offs.data_ptr(), out.data_ptr(),
-            idx.data_ptr() if emit_idx else None,
-            n, h, w, c, p, sy, sx, _DTYPE_CODES[body.dtype], int(emit_idx))
+    launch("fold_place", lib, body.device,
+           body.data_ptr(), wins.data_ptr(), mwins.data_ptr(),
+           zero_nb.data_ptr(), offs.data_ptr(), out.data_ptr(),
+           idx.data_ptr() if emit_idx else None,
+           n, h, w, c, p, sy, sx, _DTYPE_CODES[body.dtype], int(emit_idx))
     count_launch(LAUNCHES, "fold_place",
                  *(("fold_place_idx",) if emit_idx else ()))
     return out, idx
@@ -341,13 +303,13 @@ def fold_route(g: torch.Tensor, idx: torch.Tensor, mask0: torch.Tensor,
     _refuse_grad("fold_route", tensors)
     if not _on_card("fold_route", tensors, c):
         return fold_route_reference(g, idx, mask0, mwins, offs)
-    lib = _kernel_lib("fold_route", 7, 8)
+    lib = kernel_lib("fold_route", 7, 8)
     gwins = torch.empty((n, p, sy, sx, c), dtype=g.dtype, device=g.device)
     gbody = torch.empty_like(g)
-    _launch("fold_route", lib, g.device,
-            g.data_ptr(), idx.data_ptr(), mask0.data_ptr(), mwins.data_ptr(),
-            offs.data_ptr(), gwins.data_ptr(), gbody.data_ptr(),
-            n, h, w, c, p, sy, sx, _DTYPE_CODES[g.dtype])
+    launch("fold_route", lib, g.device,
+           g.data_ptr(), idx.data_ptr(), mask0.data_ptr(), mwins.data_ptr(),
+           offs.data_ptr(), gwins.data_ptr(), gbody.data_ptr(),
+           n, h, w, c, p, sy, sx, _DTYPE_CODES[g.dtype])
     count_launch(LAUNCHES, "fold_route")
     return gwins, gbody
 
@@ -378,11 +340,11 @@ def fold_place_stream(acc: torch.Tensor, idx: torch.Tensor | None,
     _refuse_grad("fold_place_stream", tensors)
     if not _on_card("fold_place_stream", tensors, c):
         return fold_place_stream_reference(acc, idx, wins, mwins, offs)
-    lib = _kernel_lib("fold_place_stream", 5, 8)
-    _launch("fold_place_stream", lib, acc.device,
-            acc.data_ptr(), idx.data_ptr() if idx is not None else None,
-            wins.data_ptr(), mwins.data_ptr(), offs.data_ptr(),
-            n, h, w, c, p, sy, sx, _DTYPE_CODES[acc.dtype])
+    lib = kernel_lib("fold_place_stream", 5, 8)
+    launch("fold_place_stream", lib, acc.device,
+           acc.data_ptr(), idx.data_ptr() if idx is not None else None,
+           wins.data_ptr(), mwins.data_ptr(), offs.data_ptr(),
+           n, h, w, c, p, sy, sx, _DTYPE_CODES[acc.dtype])
     count_launch(LAUNCHES, "fold_place_stream")
     return acc, idx
 
@@ -515,10 +477,10 @@ def warp_taps(features: torch.Tensor, coeffs: torch.Tensor, s_y: int,
         return warp_taps_reference(features, coeffs, s_y, s_x)
     out = torch.empty((n, p, s_y, s_x, c), dtype=features.dtype,
                       device=features.device)
-    lib = _kernel_lib("warp_taps", 3, 8)
-    _launch("warp_taps", lib, features.device,
-            features.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-            n, h, w, c, p, s_y, s_x, _DTYPE_CODES[features.dtype])
+    lib = kernel_lib("warp_taps", 3, 8)
+    launch("warp_taps", lib, features.device,
+           features.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+           n, h, w, c, p, s_y, s_x, _DTYPE_CODES[features.dtype])
     count_launch(LAUNCHES, "warp_taps")
     return out
 
@@ -546,10 +508,10 @@ def warp_taps_t(g_wins: torch.Tensor, coeffs: torch.Tensor, h: int, w: int,
     out = torch.empty((n, h, w, c),
                       dtype=torch.float32 if joint else g_wins.dtype,
                       device=g_wins.device)
-    lib = _kernel_lib("warp_taps", 3, 9, "warp_taps_t")
-    _launch("warp_taps_t", lib, g_wins.device,
-            g_wins.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-            n, h, w, c, p, s_y, s_x, _DTYPE_CODES[g_wins.dtype], int(joint),
-            source="warp_taps")
+    lib = kernel_lib("warp_taps", 3, 9, "warp_taps_t")
+    launch("warp_taps_t", lib, g_wins.device,
+           g_wins.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+           n, h, w, c, p, s_y, s_x, _DTYPE_CODES[g_wins.dtype], int(joint),
+           source="warp_taps")
     count_launch(LAUNCHES, "warp_taps_t")
     return out

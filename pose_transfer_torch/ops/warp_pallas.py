@@ -19,7 +19,8 @@ Pieces, as for every kernel of the port:
 - the plain PyTorch versions ``warp_fold_pallas_reference`` and
   ``warp_fold_pallas_bwd_reference``.
 - ``LAUNCHES``: how many times each kernel was launched (``warp_fold_idx``
-  counts the forward launches that emitted the argmax).
+  counts the forward launches that emitted the argmax), registered with
+  ``ops.launches``.
 - the span ``fold.bwd.<h>x<w>`` (``utils.spans``, branch 'pallas') around
   ``WarpFoldPallas``'s backward; ``ops.warp`` spans the forward.
 
@@ -52,11 +53,13 @@ import torch
 
 from ..utils.spans import span
 from . import warp_fused
+from .launches import count_launch, kernel_lib, launch, register
 
 OB = 8   # the TPU kernels' row and column blocks: the shape gate below
 XB = 8
 
-LAUNCHES = {"warp_fold": 0, "warp_fold_idx": 0, "warp_fold_bwd": 0}
+LAUNCHES = register({"warp_fold": 0, "warp_fold_idx": 0,
+                     "warp_fold_bwd": 0})
 
 _DTYPE_CODES = warp_fused._DTYPE_CODES
 
@@ -314,18 +317,18 @@ def warp_fold(features: torch.Tensor, warps_scaled: torch.Tensor,
         return warp_fold_pallas_reference(features, warps_scaled, masks_r,
                                           emit_idx)
     _check_stats("warp_fold", stats, 2, features.device)
-    lib = warp_fused._kernel_lib("warp_fold", 6, 7)
+    lib = kernel_lib("warp_fold", 6, 7)
     out = torch.empty_like(features)
     idx = torch.empty(features.shape, dtype=torch.int8,
                       device=features.device) if emit_idx else None
-    warp_fused._launch(
+    launch(
         "warp_fold", lib, features.device, features.data_ptr(),
         warps_scaled.data_ptr(), masks_r.data_ptr(), out.data_ptr(),
         idx.data_ptr() if emit_idx else None,
         None if stats is None else stats.data_ptr(),
         n, h, w, c, t, _DTYPE_CODES[features.dtype], int(emit_idx))
-    warp_fused.count_launch(LAUNCHES, "warp_fold",
-                            *(("warp_fold_idx",) if emit_idx else ()))
+    count_launch(LAUNCHES, "warp_fold",
+                 *(("warp_fold_idx",) if emit_idx else ()))
     return out, idx
 
 
@@ -354,15 +357,15 @@ def warp_fold_bwd(g: torch.Tensor, warps_scaled: torch.Tensor,
         _no_stats("warp_fold_bwd", stats)
         return warp_fold_pallas_bwd_reference(g, warps_scaled, masks_r, idx)
     _check_stats("warp_fold_bwd", stats, 3, g.device)
-    lib = warp_fused._kernel_lib("warp_fold_bwd", 7, 6)
+    lib = kernel_lib("warp_fold_bwd", 7, 6)
     df = torch.empty_like(g)
     bbox = torch.empty((n, t, 4), dtype=torch.int32, device=g.device)
-    warp_fused._launch(
+    launch(
         "warp_fold_bwd", lib, g.device, g.data_ptr(), warps_scaled.data_ptr(),
         masks_r.data_ptr(), idx.data_ptr(), df.data_ptr(), bbox.data_ptr(),
         None if stats is None else stats.data_ptr(),
         n, h, w, c, t, _DTYPE_CODES[g.dtype])
-    warp_fused.count_launch(LAUNCHES, "warp_fold_bwd")
+    count_launch(LAUNCHES, "warp_fold_bwd")
     return df
 
 

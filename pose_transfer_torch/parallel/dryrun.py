@@ -22,15 +22,11 @@ import time
 import torch
 
 from ..models.networks import ChannelDropout
-from ..ops import warp_fused, warp_pallas
+from ..ops.launches import launch_counts
 from ..train.engine import create_state
 from .mesh import (ProcessGroup, config_for_mesh, gather_rows,
                    make_parallel_train_step, replicate_state, shard_batch,
                    spawn_ranks, unreplicate_state)
-
-
-def _launches() -> dict:
-    return {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES}
 
 
 def record_grads(step) -> list:
@@ -103,7 +99,7 @@ def run_job(group: ProcessGroup, job: dict) -> dict:
     if cuda:
         torch.cuda.synchronize(group.device)
         torch.cuda.reset_peak_memory_stats(group.device)
-    before = _launches()
+    before = launch_counts()
     metrics, step_ms, snapshots = [], [], []
     out = None
     r, k = group.rank, group.world
@@ -117,7 +113,7 @@ def run_job(group: ProcessGroup, job: dict) -> dict:
         metrics.append({n: v.tolist() for n, v in m.items()})
         if job.get("snapshots"):
             snapshots.append(unreplicate_state(state))
-    after = _launches()
+    after = launch_counts()
     out = gather_rows(out, group, 1 if cfg.gen_type == "stacked" else 0)
     return {"params": unreplicate_state(state), "snapshots": snapshots,
             "metrics": metrics, "grads": grads,

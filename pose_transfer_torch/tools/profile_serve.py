@@ -52,7 +52,7 @@ from ..train.engine import GANConfig, build_models, make_eval_step
 
 ITERS = 10        # timed steps per device measurement
 # the name prefixes of the program's spans (utils.spans)
-SPANS = ("serve.", "step.", "train.", "gen.", "fold.")
+SPANS = ("serve.", "step.", "train.", "gen.", "fold.", "content.")
 REQUESTS = 384    # requests per serving load: tails from hundreds, not tens
 # --dataset: image size and pose schema as the CLI derives them
 DATASETS = {"fasion": ((256, 256), 18), "h36m": ((224, 224), 16)}

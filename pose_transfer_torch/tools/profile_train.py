@@ -26,9 +26,10 @@ backend, dataset, generator type and content layer:
   each of the program's spans (``utils.spans``: the two phases, batch
   preparation, the encoders, the fold plan and its sync, each fold
   instance's forward and backward by resolution, the decoder, the
-  backward passes and the Adam updates) with the device time of the
-  kernels launched inside it, its host time and its calls; and the fold
-  kernels' launches a step.
+  backward passes and the Adam updates; with a content loss the VGG19
+  prefix and the nearest-neighbour loss, forward and backward) with the
+  device time of the kernels launched inside it, its host time and its
+  calls; and the fold and content-loss kernels' launches a step.
 Needs a CUDA device.
 """
 
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from ..data.synthetic import synthetic_compact_batch
-from ..ops import warp_fused, warp_pallas
+from ..ops.launches import launch_counts
 from ..train.engine import GANConfig, create_state, make_train_step
 from .profile_serve import (DATASETS, _category, _idle_share, _span_ms,
                             config_for)
@@ -104,16 +105,15 @@ def profile(batch: int, smi: str, warp_backend: str = "matmul",
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
         flush=True)
 
-    def counts():
-        return {**warp_fused.LAUNCHES, **warp_pallas.LAUNCHES}
-    launches0 = counts()
+    launches0 = launch_counts()
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for i in range(2):
             step(*batches[i])
         torch.cuda.synchronize()
-    launches = {k: (v - launches0[k]) / 2 for k, v in counts().items()}
+    launches = {k: (v - launches0[k]) / 2
+                for k, v in launch_counts().items()}
     by_cat: dict[str, float] = {}
     kernels = []
     for ev in prof.key_averages():

@@ -14,7 +14,9 @@ draw and an independent real draw, the generator forward under
 Spans (``utils.spans``, while a profiler records): ``step.prepare``
 around the batch preparer of either step; ``train.disc_phase`` and
 ``train.gen_phase`` (attribute ``step``), each with ``train.backward``
-and ``train.optimizer``.
+and ``train.optimizer``; with a content loss, ``content.features``
+(attribute ``area``) around the VGG19 prefix of the generated image and
+of the target, beside ``ops.nn_loss``'s ``content.nn_loss``.
 
 Each step sets the module modes it needs (eval for inference, train for
 training), so a server and a trainer may share one generator in turn.
@@ -327,9 +329,10 @@ def reconstruction_loss(out_gen: torch.Tensor, target: torch.Tensor,
     if config.content_loss_layer == "none":
         return losses.l1_loss(out_gen, target)
     layer = vgg_mod.get_layer_ind(config.content_loss_layer)
-    f_gen = vgg_mod.extract_features(vgg, out_gen, layer)
-    f_tgt = vgg_mod.extract_features(vgg, target, layer)
     a = config.nn_loss_area_size
+    with span("content.features", area=f"{a}x{a}"):
+        f_gen = vgg_mod.extract_features(vgg, out_gen, layer)
+        f_tgt = vgg_mod.extract_features(vgg, target, layer)
     return nn_loss(f_gen, f_tgt, a, a)
 
 

@@ -1,11 +1,13 @@
 """The port's span recorder (``pose_transfer_torch.utils.spans``) on the
 CPU: free and silent with no profiler; under ``torch.profiler`` the spans
-of an eval step, a training step and the server, with their parents, on
+of an eval step, a training step (L1 and the content loss) and the
+server, with their parents, on
 the profiler's clock, on the batcher thread that the profiler itself does
 not see; the fold's branch beside ``COUNTS['scan_fallback']``; a full
 buffer dropping its oldest records."""
 
 import collections
+import dataclasses
 import threading
 
 import numpy as np
@@ -15,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from pose_transfer_torch.data.synthetic import (random_image, random_skeleton,
                                                 synthetic_compact_batch)
-from pose_transfer_torch.models import networks
+from pose_transfer_torch.models import networks, vgg
 from pose_transfer_torch.ops import warp
 from pose_transfer_torch.serve import PoseTransferServer
 from pose_transfer_torch.train import engine
@@ -32,6 +34,9 @@ CFG = engine.GANConfig(image_size=SIZE, pose_dim=18, batch_size=2,
 FOLDS = {f"fold.fwd.{s}x{s}" for s in (64, 32, 16, 8)}
 GEN = {"gen.encoder_app", "gen.encoder_pose", "gen.decoder", "fold.plan",
        "fold.plan_sync"} | FOLDS
+# the reference code's full_fasion recipe at a 3 × 3 area
+CONTENT = dataclasses.replace(CFG, content_loss_layer="block1_conv2",
+                              nn_loss_area_size=3, l1_penalty_weight=1.0)
 
 
 @pytest.fixture(autouse=True)
@@ -61,25 +66,27 @@ def _batch(seed=0):
     return synthetic_compact_batch(np.random.default_rng(seed), 2, SIZE, 18)
 
 
-def _train_step():
-    disc = networks.Discriminator(CFG.input_nc + 3, check_mode=True)
+def _train_step(cfg=CFG):
+    disc = networks.Discriminator(cfg.input_nc + 3, check_mode=True)
     networks.init_weights(disc, torch.Generator().manual_seed(1))
     gen = _gen()
     state = engine.TrainState(
         gen=gen, disc=disc,
-        gen_opt=engine.make_optimizer(CFG, gen.parameters()),
-        disc_opt=engine.make_optimizer(CFG, disc.parameters()),
-        rng=torch.Generator().manual_seed(2))
-    return engine.make_train_step(CFG, state)
+        gen_opt=engine.make_optimizer(cfg, gen.parameters()),
+        disc_opt=engine.make_optimizer(cfg, disc.parameters()),
+        rng=torch.Generator().manual_seed(2),
+        vgg=None if cfg.content_loss_layer == "none"
+        else vgg.random_vgg19_features(0, "cpu"))
+    return engine.make_train_step(cfg, state)
 
 
 def _run_eval():
     engine.make_eval_step(CFG, _gen(), "cpu")(_batch())
 
 
-def _run_train():
+def _run_train(cfg=CFG):
     stack = lambda b: {k: v[None] for k, v in b.items()}  # noqa: E731
-    _train_step()(stack(_batch(0)), stack(_batch(1)), _batch(2))
+    _train_step(cfg)(stack(_batch(0)), stack(_batch(1)), _batch(2))
 
 
 def _run_server():
@@ -100,7 +107,7 @@ def _parent(recs):
 
 
 @pytest.mark.parametrize("work", ["span", "sample", "eval", "train",
-                                  "server"])
+                                  "content", "server"])
 def test_no_profiler_no_range_no_record(work, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a profiler range entered with no profiler")
@@ -113,8 +120,8 @@ def test_no_profiler_no_range_no_record(work, monkeypatch):
     elif work == "sample":
         spans.sample("x", 1.0, a=1)
     else:
-        {"eval": _run_eval, "train": _run_train, "server": _run_server}[
-            work]()
+        {"eval": _run_eval, "train": _run_train, "server": _run_server,
+         "content": lambda: _run_train(CONTENT)}[work]()
     assert spans.records() == [] and spans.dropped() == 0
 
 
@@ -157,6 +164,33 @@ def test_step_spans_and_parents(work):
         assert parent(r) == "train.backward"
         assert r.attrs["branch"] == by[name.replace("bwd", "fwd")][
             1].attrs["branch"]
+
+
+def test_content_loss_spans():
+    """A content-loss step: the VGG19 prefix of both images in one
+    ``content.features``, the forward in ``content.nn_loss``, both in the
+    generator phase; the backward's ``content.nn_loss.bwd`` inside its
+    ``train.backward`` (the CPU's autograd runs it on the calling
+    thread); each with the area; none in the discriminator phase."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        _run_train(CONTENT)
+    recs = spans.records()
+    by, parent = _by_name(recs), _parent(recs)
+    content = {"content.features", "content.nn_loss", "content.nn_loss.bwd"}
+    assert content <= set(by)
+    for name in content:
+        (r,) = by[name]
+        assert r.attrs == {"area": "3x3"}
+        assert r.end_ns >= r.start_ns
+    assert parent(by["content.features"][0]) == "train.gen_phase"
+    assert parent(by["content.nn_loss"][0]) == "train.gen_phase"
+    assert by["content.features"][0].end_ns \
+        <= by["content.nn_loss"][0].start_ns
+    (bwd,) = by["content.nn_loss.bwd"]
+    assert parent(bwd) == "train.backward"
+    gen_backward = [r for r in by["train.backward"]
+                    if parent(r) == "train.gen_phase"]
+    assert [r.id for r in gen_backward] == [bwd.parent]
 
 
 def test_span_on_the_profilers_clock():
