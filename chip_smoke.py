@@ -22,16 +22,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
               zero_nb all ones); warp_taps (bitwise, and against the banded
               products) and warp_taps_t (within a stated tolerance) at
               every fold stage of the benchmark cells at batch 32, the
-              windows' call and the full map's (TAPS_STAGES)
+              windows' call and the full map's (TAPS_STAGES);
+              volume_norm_fwd and volume_norm_bwd at each dataset's largest
+              normed volume at b32 (NORM_SHAPES), bf16 and f32, held to the
+              plain norm and autograd through it within stated limits, two
+              calls bit for bit, timed beside their byte bound, the plain
+              version and torch.nn.functional.group_norm(x, 1)
   4. serve    the full-width fashion-256 deformable generator (bf16, seeded
               random weights) behind PoseTransferServer: two full batches
-              of 8 and a padded partial batch of 3; outputs checked, fold
-              and tap kernel launches counted, the kernel-placed fold held
+              of 8 and a padded partial batch of 3; outputs checked, fold,
+              tap and norm kernel launches counted, the kernel-placed fold held
               against the plain full-scan fold on the banded warps
   5. train    the two-phase GAN step at full width (generator and
               discriminator, bf16, batch 8, seeded): one warm-up step and 3
               steps on synthetic batches; losses finite, both nets' weights
-              moved, fold_place and fold_route launches counted; then the
+              moved, fold_place, fold_route and norm launches counted
+              (GEN_NORMS, DISC_NORMS; also in the recipe's and the stacked
+              generator's steps); then the
               fold's gradient through the kernels (fold_place with the
               argmax, fold_route, warp_taps, warp_taps_t) held against
               autograd through the plain full-scan fold on the banded
@@ -205,6 +212,7 @@ from pose_transfer_torch.models import import_flax, import_keras
 from pose_transfer_torch.models import vgg as vgg_mod
 from pose_transfer_torch.models.networks import Discriminator
 from pose_transfer_torch.ops import nn_loss as nn_loss_mod
+from pose_transfer_torch.ops import norm as norm_mod
 from pose_transfer_torch.ops import warp as warp_mod
 from pose_transfer_torch.ops import warp_fused
 from pose_transfer_torch.ops import warp_pallas
@@ -357,6 +365,22 @@ PER_STEP = {"matmul": {"fold_place": 6, "fold_place_idx": 3, "fold_route": 3,
                        "warp_fold_bwd": 2, "warp_taps": 24,
                        "warp_taps_t": 12}}
 TAPS_PER_FALLBACK = PARTS + 1 - 2
+# volume_norm launches: one volume_norm_fwd per normed Block a forward
+# runs (fashion-256's generator: 5 in each encoder, 6 in the decoder; the
+# discriminator 3), one volume_norm_bwd per normed Block a backward passes;
+# a step runs the generator and the discriminator forward twice, the
+# generator backward once and the discriminator twice
+GEN_NORMS, DISC_NORMS = 16, 3
+# phase 3's volume_norm shapes: each dataset's largest normed volume at
+# b32 (the decoder's last Block), channels-last as the networks run it
+NORM_SHAPES = (((32, 128, 256, 256), "fasion"), ((32, 128, 224, 224), "h36m"))
+NORM_EPS = 1e-3
+# the kernels against the plain function and autograd through it, as
+# tests/test_torch_norm_kernel.py holds them: the f32 sums run in another
+# order (within NORM_F32_REL of the largest magnitude), and in bf16 an
+# element rounded once from those f32 values may take the neighbouring
+# value (one ulp of its own magnitude, NORM_BF16_ULP, beyond that)
+NORM_F32_REL, NORM_BF16_ULP = 1e-5, 2.0 ** -7
 
 
 def emit(obj) -> None:
@@ -578,7 +602,100 @@ def phase_kernels(flush) -> dict:
                     _add(m, res)
     for image, pose_dim, stage, dataset in TAPS_STAGES:
         _check_taps(image, pose_dim, stage, dataset, main, flush)
+    main["volume_norm_fwd"], main["volume_norm_bwd"] = _check_norm(flush)
     return main
+
+
+def _norm_within(got, want, dtype) -> bool:
+    got, want = got.float(), want.float()
+    tol = NORM_F32_REL * want.abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + NORM_BF16_ULP * want.abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
+def _check_norm(flush) -> tuple[dict, dict]:
+    """volume_norm_fwd and volume_norm_bwd at NORM_SHAPES, bf16 and f32:
+    held to the plain function (the output) and autograd through it (the
+    input's, weight's and bias's cotangents), two calls bit for bit; ms
+    with a cold L2 beside the least time of the bytes, the plain version's
+    ms and the ms of torch.nn.functional.group_norm(x, 1), one PyTorch call
+    with the same statistics that the port never calls (its backward by
+    autograd). The summaries sum fashion's bf16 calls."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    w = torch.tensor([1.3], device="cuda")
+    b = torch.tensor([-0.2], device="cuda")
+    sums = {"fwd": _summary(), "bwd": _summary()}
+    for shape, dataset in NORM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            x, g = ((torch.randn(shape, generator=gen, device="cuda") * scale
+                     + shift).to(dtype).contiguous(
+                         memory_format=torch.channels_last)
+                    for scale, shift in ((1.5, 0.7), (1.0, 0.0)))
+            y, stats = norm_mod.volume_norm_fwd(x, w, b, NORM_EPS)
+            dx, dwb = norm_mod.volume_norm_bwd(x, g, w, stats)
+            y2, stats2 = norm_mod.volume_norm_fwd(x, w, b, NORM_EPS)
+            dx2, dwb2 = norm_mod.volume_norm_bwd(x, g, w, stats2)
+            repeat = all(torch.equal(p, q) for p, q in
+                         ((y, y2), (stats, stats2), (dx, dx2), (dwb, dwb2)))
+            xr, wr, br = (t.detach().clone().requires_grad_(True)
+                          for t in (x, w, b))
+            ref = norm_mod.volume_instance_norm_reference(xr, wr, br,
+                                                          NORM_EPS)
+            rdx, rdw, rdb = torch.autograd.grad(ref, (xr, wr, br), g,
+                                                retain_graph=True)
+            xh_abs = (g.float() * ((ref.detach().float() - b) / w)).abs()
+            errs = {"fwd": (y.float() - ref.detach().float()).abs().max()
+                    .item(),
+                    "bwd": (dx.float() - rdx.float()).abs().max().item()}
+            ok = {"fwd": _norm_within(y, ref.detach(), dtype),
+                  "bwd": _norm_within(dx, rdx, dtype)
+                  and (dwb[0] - rdw).abs().item()
+                  <= NORM_F32_REL * xh_abs.sum().item()
+                  and (dwb[1] - rdb).abs().item()
+                  <= NORM_F32_REL * g.float().abs().sum().item()}
+            check(repeat, f"volume_norm repeat {dtype} at {shape}")
+            check(ok["fwd"] and ok["bwd"],
+                  f"volume_norm against plain {dtype} at {shape}: {ok}")
+            xl = x.detach().requires_grad_(True)
+            lib_out = F.group_norm(xl, 1)
+            calls = {
+                "fwd": (lambda: norm_mod.volume_norm_fwd(x, w, b, NORM_EPS),
+                        lambda: norm_mod.volume_instance_norm_reference(
+                            x, w, b, NORM_EPS),
+                        lambda: F.group_norm(x, 1)),
+                "bwd": (lambda: norm_mod.volume_norm_bwd(x, g, w, stats),
+                        lambda: torch.autograd.grad(
+                            ref, (xr, wr, br), g, retain_graph=True),
+                        lambda: torch.autograd.grad(
+                            lib_out, xl, g, retain_graph=True))}
+            nbytes = x.numel() * x.element_size()
+            for d, (kernel, plain, library) in calls.items():
+                # least bytes: x read and y written; x and g read and dx
+                # written. Operations a pass: the sums (an add and an FMA),
+                # then a subtract, two multiplies and an add; backward five
+                # and six
+                res = {"ms": time_cuda(kernel, 20, flush),
+                       "plain_ms": time_cuda(plain, 3, flush),
+                       "library_ms": time_cuda(library, 3, flush),
+                       **_bound((2 if d == "fwd" else 3) * nbytes,
+                                (6 if d == "fwd" else 11) * x.numel())}
+                emit({"phase": "kernel", "name": f"volume_norm_{d}",
+                      "dtype": dname, "dataset": dataset,
+                      "shape": dict(zip("NCHW", shape)),
+                      "layout": "channels_last", "within_limits": ok[d],
+                      "repeatable": repeat, "max_abs_err": errs[d], **res})
+                m = sums[d]
+                m["max_abs_err"] = max(m["max_abs_err"], errs[d])
+                if dtype == torch.bfloat16 and dataset == "fasion":
+                    _add(m, res)
+                    m["library_ms"] = m.get("library_ms", 0.0) \
+                        + res["library_ms"]
+            del x, g, y, y2, dx, dx2, xr, ref, rdx, xl, lib_out, calls
+            torch.cuda.empty_cache()
+    return sums["fwd"], sums["bwd"]
 
 
 def _taps_calls(feats, warps, masks, static_empty, image):
@@ -1089,6 +1206,11 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
     check(counts["warp_taps"] == taps and counts["warp_taps_t"] == 0,
           f"{counts['warp_taps']} warp_taps launches != {taps}, or "
           f"{counts['warp_taps_t']} warp_taps_t in serving")
+    check(counts["volume_norm_fwd"] == GEN_NORMS * forwards
+          and counts["volume_norm_bwd"] == 0,
+          f"{counts['volume_norm_fwd']} volume_norm_fwd launches != "
+          f"{GEN_NORMS} per forward ({forwards} forwards), or "
+          f"{counts['volume_norm_bwd']} volume_norm_bwd in serving")
     if backend == "pallas":
         check(counts["warp_fold"] == 2 * forwards
               and counts["warp_fold_idx"] == 0,
@@ -1098,6 +1220,7 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
           "forwards": forwards, "fold_place_launches": place,
           "warp_fold_launches": counts["warp_fold"],
           "warp_taps_launches": counts["warp_taps"],
+          "volume_norm_fwd_launches": counts["volume_norm_fwd"],
           "scan_fallbacks": fallbacks,
           "fold_place_per_forward": place / forwards,
           "warp_fold_per_forward": counts["warp_fold"] / forwards,
@@ -1205,7 +1328,8 @@ def _steps(cfg: GANConfig, steps: int, seed: int, on_timed=None) -> dict:
 def _check_step_launches(counts: dict, backend: str, steps: int,
                          stacks: int, what: str) -> None:
     """Every fold kernel's launches are ``stacks`` x a baseline step's, a
-    scan fallback standing in for a fold_place launch."""
+    scan fallback standing in for a fold_place launch; the norm kernels'
+    as GEN_NORMS and DISC_NORMS count them."""
     want = {k: v * steps * stacks for k, v in PER_STEP[backend].items()}
     got = {k: counts[k] for k in want}
     fallbacks = counts["scan_fallback"]
@@ -1218,6 +1342,10 @@ def _check_step_launches(counts: dict, backend: str, steps: int,
     check(got == want, f"{what}: launches {got} != {want} "
           f"({fallbacks} fallbacks)")
     check(counts["fold_place"] > 0, f"{what}: no fold_place launch")
+    norms = {"volume_norm_fwd": steps * 2 * (stacks * GEN_NORMS + DISC_NORMS),
+             "volume_norm_bwd": steps * (stacks * GEN_NORMS + 2 * DISC_NORMS)}
+    check({k: counts[k] for k in norms} == norms,
+          f"{what}: norm launches {counts} != {norms}")
 
 
 def phase_train(card: str, backend: str = "matmul") -> dict:
@@ -1246,6 +1374,8 @@ def phase_train(card: str, backend: str = "matmul") -> dict:
           "warp_fold_launches": launches["warp_fold"],
           "warp_fold_idx_launches": launches["warp_fold_idx"],
           "warp_fold_bwd_launches": launches["warp_fold_bwd"],
+          "volume_norm_fwd_launches": launches["volume_norm_fwd"],
+          "volume_norm_bwd_launches": launches["volume_norm_bwd"],
           "step_ms": run["step_ms"],
           # 3 steps after one warm-up: a smoke reading, not a benchmark
           # (tools/profile_train.py measures); images per step counted as
@@ -2036,7 +2166,9 @@ def phase_stacked(card: str) -> dict:
 
 
 def phase_unet(card: str) -> None:
-    """The U-Net behind the server: one batch of 8, no fold kernel."""
+    """The U-Net behind the server: one batch of 8, no fold kernel; one
+    volume_norm_fwd launch for each of its GEN_NORMS - 5 normed Blocks
+    (one encoder of 5, the decoder's 6)."""
     cfg = _fashion(gen_type="unet")
     gen = build_models(cfg, seed=0, device="cuda")
     reqs = make_requests(np.random.default_rng(11), BATCH, (256, 256))
@@ -2045,7 +2177,10 @@ def phase_unet(card: str) -> None:
         out = srv.generate(reqs)
         counts = _counts()
     check_images(out, BATCH, "unet batch")
-    check(not any(counts.values()), f"the U-Net launched {counts}")
+    norms = {"volume_norm_fwd": GEN_NORMS - 5, "volume_norm_bwd": 0}
+    check({k: counts[k] for k in norms} == norms
+          and not any(v for k, v in counts.items() if k not in norms),
+          f"the U-Net launched {counts}")
     emit({"phase": "unet_serve", "card": card, "batch": BATCH,
           "gen_params": sum(p.numel() for p in gen.parameters()),
           "launches": counts})
@@ -2996,7 +3131,7 @@ def main(argv=None) -> int:
     def new(name):
         return sum(p.get(name, 0) for p in new_paths)
 
-    def taps_launches(name):
+    def main_paths(name):
         # every main path of the fashion and h36m phases, both backends
         return serve_launches[name] + train_launches[name] \
             + pallas_serve[name] + pallas_train[name] + cli_launches[name] \
@@ -3023,20 +3158,28 @@ def main(argv=None) -> int:
          tpu + "warp_fused.py:300", []),
         # no TPU kernel: the banded dots of the windowed warp (:416) and of
         # its transpose (:512), and the full map's (:332)
-        ("warp_taps", taps_launches("warp_taps"), tpu + "warp.py:416", []),
-        ("warp_taps_t", taps_launches("warp_taps_t"), tpu + "warp.py:512",
+        ("warp_taps", main_paths("warp_taps"), tpu + "warp.py:416", []),
+        ("warp_taps_t", main_paths("warp_taps_t"), tpu + "warp.py:512",
          [tpu + "warp.py:332"]),
         # no TPU kernel: the chain of shifts that XLA fuses under jit
         # (nn_loss.py:96, its custom VJP's forward; :114, its backward)
         ("nn_loss_fwd", new("nn_loss_fwd"), tpu + "nn_loss.py:96", []),
         ("nn_loss_bwd", new("nn_loss_bwd"), tpu + "nn_loss.py:114", []),
+        # no TPU kernel: the plain jnp norm that XLA fuses under jit
+        # (norm.py:17), forward and its autodiff
+        ("volume_norm_fwd", main_paths("volume_norm_fwd"),
+         tpu + "norm.py:17", []),
+        ("volume_norm_bwd", main_paths("volume_norm_bwd"),
+         tpu + "norm.py:17", []),
     )
     kernels = []
     for name, launches, replaces, also in rows:
         m = main_k[name]
-        # warp_taps.cu holds both tap kernels, nn_loss.cu both nn_loss ones
+        # warp_taps.cu holds both tap kernels, nn_loss.cu both nn_loss
+        # ones, volume_norm.cu both norm ones
         source = {"warp_taps_t": "warp_taps", "nn_loss_fwd": "nn_loss",
-                  "nn_loss_bwd": "nn_loss"}.get(name, name)
+                  "nn_loss_bwd": "nn_loss", "volume_norm_fwd": "volume_norm",
+                  "volume_norm_bwd": "volume_norm"}.get(name, name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pose_transfer_torch/csrc/{source}.cu",
@@ -3046,7 +3189,7 @@ def main(argv=None) -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"]
             else "operations",
-            "library_ms": None, "checked_vs_plain": True,
+            "library_ms": m.get("library_ms"), "checked_vs_plain": True,
             **{k: v for k, v in m.items() if k.endswith("_main")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
