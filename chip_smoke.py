@@ -196,6 +196,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench import measure
 from pose_transfer_torch import _build
 from pose_transfer_torch.cli import evaluate as cli_evaluate
 from pose_transfer_torch.cli import main as cli_main
@@ -231,8 +232,6 @@ from pose_transfer_torch.train.engine import (GANConfig, batch_preparer,
 from pose_transfer_torch.utils import flax_msgpack
 from pose_transfer_torch.utils.image_io import read_image
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 GEN_PARAMS = 82_080_611       # fashion-256 generator (reference logs)
 DISC_PARAMS = 2_803_782       # fashion discriminator (reference logs)
 TRAIN_STEPS = 3
@@ -438,13 +437,6 @@ def place_inputs(h, c, sy, sx, dtype, gen, p=PARTS, zero_all=False):
             mwins.to(dtype).contiguous(), zero_nb, offs)
 
 
-def place_bytes(h, c, sy, sx, itemsize, emit_idx, p=PARTS) -> int:
-    n = BATCH
-    b = itemsize * (2 * n * h * h * c + n * p * sy * sx * c + n * p * sy * sx)
-    b += n * h * h + n * p * 3 * 4                  # zero_nb, offs
-    return b + (n * h * h * c if emit_idx else 0)    # int8 idx
-
-
 def route_inputs(h, c, sy, sx, dtype, gen, p=PARTS):
     """fold_route inputs: g with negatives, the mask windows and offsets of
     ``place_inputs`` (zeros among the mask values: signed zeros; two parts
@@ -457,15 +449,6 @@ def route_inputs(h, c, sy, sx, dtype, gen, p=PARTS):
     mask0 = levels[torch.randint(0, 3, (BATCH, h, h), generator=gen,
                                  device="cuda")].to(dtype)
     return g, idx, mask0, mwins, offs
-
-
-def route_bytes(h, c, sy, sx, itemsize, p=PARTS) -> int:
-    """Least bytes of one fold_route: g read and gbody written, gwins
-    written, the mask windows and the body mask read once; int8 idx; offs."""
-    n = BATCH
-    return itemsize * (2 * n * h * h * c + n * p * sy * sx * c
-                       + n * p * sy * sx + n * h * h) \
-        + n * h * h * c + 12 * n * p
 
 
 def nn_loss_bytes(n, h, w, c, direction: str, reached: int = 0) -> int:
@@ -501,11 +484,14 @@ def stream_bytes(offs, h, c, sy, sx, itemsize, with_idx) -> int:
     return itemsize * n * pg * sy * sx * (c + 1) + 12 * n * pg + state
 
 
-def _bound(nbytes: int, ops: float) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+def _least_time(nbytes: int, ops: float) -> dict:
+    """A launch's least time on the card by the benchmark's model
+    (``portbench.measure.least_seconds``: bytes at the HBM rate or
+    operations at the f32 rate, whichever binds), with both parts."""
+    bytes_ms = measure.least_seconds(nbytes, 0) * 1e3
+    ops_ms = measure.least_seconds(0, ops) * 1e3
     return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": measure.least_seconds(nbytes, ops) * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
@@ -551,9 +537,9 @@ def phase_kernels(flush) -> dict:
                 plain_ms = time_cuda(lambda: warp_fused.fold_place_reference(
                     *args, emit_idx=emit_idx), 3, flush)
                 # operations: one multiply and one compare per window element
-                res = {"ms": ms, "plain_ms": plain_ms, **_bound(
-                    place_bytes(h, c, sy, sx, out.element_size(), emit_idx,
-                                p),
+                res = {"ms": ms, "plain_ms": plain_ms, **_least_time(
+                    measure.place_bytes(BATCH, h, h, c, p, sy, sx,
+                                        out.element_size(), emit_idx),
                     2 * BATCH * p * sy * sx * c)}
                 emit({"phase": "kernel", "name": "fold_place", "dtype": dname,
                       "emit_idx": emit_idx, "dataset": dataset,
@@ -580,8 +566,9 @@ def phase_kernels(flush) -> dict:
             plain_ms = time_cuda(
                 lambda: warp_fused.fold_route_reference(*args), 3, flush)
             # operations: one compare and one multiply per output element
-            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
-                route_bytes(h, c, sy, sx, out[0].element_size(), p),
+            res = {"ms": ms, "plain_ms": plain_ms, **_least_time(
+                measure.route_bytes(BATCH, h, h, c, p, sy, sx,
+                                    out[0].element_size()),
                 2 * BATCH * (p * sy * sx + h * h) * c)}
             emit({"phase": "kernel", "name": "fold_route", "dtype": dname,
                   "dataset": dataset,
@@ -680,7 +667,7 @@ def _check_norm(flush) -> tuple[dict, dict]:
                 res = {"ms": time_cuda(kernel, 20, flush),
                        "plain_ms": time_cuda(plain, 3, flush),
                        "library_ms": time_cuda(library, 3, flush),
-                       **_bound((2 if d == "fwd" else 3) * nbytes,
+                       **_least_time((2 if d == "fwd" else 3) * nbytes,
                                 (6 if d == "fwd" else 11) * x.numel())}
                 emit({"phase": "kernel", "name": f"volume_norm_{d}",
                       "dtype": dname, "dataset": dataset,
@@ -754,7 +741,7 @@ def _check_taps(image, pose_dim, stage, dataset, main, flush) -> None:
                            20, flush)
             plain_ms = time_cuda(lambda: warp_fused.warp_taps_reference(
                 feats, co, s_y, s_x), 3, flush)
-            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
+            res = {"ms": ms, "plain_ms": plain_ms, **_least_time(
                 item * (n * h * w * c + win) + 32 * n * p, TAPS_OPS * win)}
             emit({"phase": "kernel", "name": "warp_taps", "dtype": dname,
                   "dataset": dataset, "call": name, "shape": shape,
@@ -784,7 +771,7 @@ def _check_taps(image, pose_dim, stage, dataset, main, flush) -> None:
             plain_ms = time_cuda(lambda: warp_fused.warp_taps_t_reference(
                 g, co, h, w, joint), 3, flush)
             out_item = 4 if joint else item
-            res = {"ms": ms, "plain_ms": plain_ms, **_bound(
+            res = {"ms": ms, "plain_ms": plain_ms, **_least_time(
                 item * win + out_item * n * h * w * c + 32 * n * p,
                 TAPS_OPS * win)}
             emit({"phase": "kernel", "name": "warp_taps_t", "dtype": dname,
@@ -843,7 +830,7 @@ def _check_stream(h, c, sy, sx, dtype, bits, with_idx, gen, flush):
                               with_idx) for g in groups) / len(groups)
     # operations: one multiply and one compare per window element
     res = {"ms": ms, "plain_ms": plain_ms,
-           **_bound(nbytes, 2 * BATCH * STREAM_PG * sy * sx * c)}
+           **_least_time(nbytes, 2 * BATCH * STREAM_PG * sy * sx * c)}
     emit({"phase": "kernel", "name": "fold_place_stream",
           "dtype": str(dtype).split(".")[-1], "idx": with_idx,
           "shape": {"N": BATCH, "H": h, "W": h, "C": c, "Pg": STREAM_PG,
@@ -1091,7 +1078,7 @@ def _check_warp_pair(set_name, f, warps, masks, gen, flush, versions, sums,
                     what)
         plain_ms = time_cuda(lambda: warp_pallas.warp_fold_pallas_reference(
             f, warps, masks, emit_idx), 2, flush)
-        res = {"ms": ms["current"], "plain_ms": plain_ms, **_bound(
+        res = {"ms": ms["current"], "plain_ms": plain_ms, **_least_time(
             warp_bytes(h, c, out.element_size(), emit_idx), ops_f)}
         skipped, pairs = stats.tolist()
         emit({"phase": "kernel", "name": "warp_fold", "inputs": set_name,
@@ -1122,7 +1109,7 @@ def _check_warp_pair(set_name, f, warps, masks, gen, flush, versions, sums,
                 lambda r: bwd_within(r, ref), versions, flush, what)
     plain_ms = time_cuda(lambda: warp_pallas.warp_fold_pallas_bwd_reference(
         g, warps, masks, idx), 2, flush)
-    res = {"ms": ms["current"], "plain_ms": plain_ms, **_bound(
+    res = {"ms": ms["current"], "plain_ms": plain_ms, **_least_time(
         warp_bytes(h, c, g.element_size(), True), ops_b)}
     err = diff.max().item()
     skipped, multipass, pairs = stats.tolist()
@@ -1176,7 +1163,8 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
     gen = build_models(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in gen.parameters())
     check(n_params == GEN_PARAMS, f"generator has {n_params} parameters")
-    check(gen.warp_windowed, "auto rule turns the windowed fold on on CUDA")
+    check(gen.folds.windowed, "auto rule turns the windowed fold on on "
+          "CUDA")
     reqs = make_requests(np.random.default_rng(0), 2 * BATCH + 3, (256, 256))
     warm = make_requests(np.random.default_rng(1), BATCH, (256, 256))
 
@@ -1231,14 +1219,12 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
           "dtype": "bfloat16", "card": card, **stats})
 
     if backend == "matmul":
-        attr, ref, kernel, per_forward = "warp_windowed", False, \
-            "fold_place", 3
+        ref, kernel, per_forward = {"windowed": False}, "fold_place", 3
         phase = "kernel_vs_plain_fold"
     else:
-        attr, ref, kernel, per_forward = "warp_backend", "matmul", \
-            "warp_fold", 2
+        ref, kernel, per_forward = {"backend": "matmul"}, "warp_fold", 2
         phase = "pallas_vs_matmul_backend"
-    under_test = getattr(gen, attr)
+    under_test = gen.folds
     for dtype in (torch.bfloat16, torch.float32):
         gen.dtype = dtype
         step = make_eval_step(dataclasses.replace(cfg, compute_dtype=dtype),
@@ -1249,10 +1235,10 @@ def phase_serve(card: str, backend: str = "matmul") -> dict:
         check(one["warp_taps"] > 0, f"no warp_taps launch in {phase}")
         # the reference side's warps on the banded products, so that the
         # tap kernel is not on both sides
-        setattr(gen, attr, ref)
+        gen.folds = dataclasses.replace(under_test, **ref)
         with warp_mod.banded_warps():
             out_p, _ = step(batch)
-        setattr(gen, attr, under_test)
+        gen.folds = under_test
         check(_counts()["warp_taps"] == one["warp_taps"],
               f"warp_taps launched on {phase}'s reference side")
         diff = (out_k.float() - out_p.float()).abs()
@@ -1359,7 +1345,7 @@ def phase_train(card: str, backend: str = "matmul") -> dict:
     n_disc = sum(p.numel() for p in state.disc.parameters())
     check(n_gen == GEN_PARAMS, f"generator has {n_gen} parameters")
     check(n_disc == DISC_PARAMS, f"discriminator has {n_disc} parameters")
-    check(state.gen.warp_windowed, "windowed fold on for CUDA training")
+    check(state.gen.folds.windowed, "windowed fold on for CUDA training")
     _check_step_launches(launches, backend, TRAIN_STEPS, 1, "train")
     images = BATCH * (2 * cfg.training_ratio + 1)
     emit({"phase": "train", "backend": backend, "card": card, "batch": BATCH,
@@ -1409,15 +1395,14 @@ def phase_fold_grad(backend: str = "matmul") -> list:
                                    torch.float32, windowed=True,
                                    backend=backend)[0]
         if backend == "matmul":
-            check(plan.windows is not None and plan.fits,
-                  f"stage {h}: the real batch does not take the windowed "
-                  "fold")
+            check(plan.branch == "place", f"stage {h}: the real batch does "
+                  "not take the windowed fold")
         else:
-            check(plan.pallas, f"stage {h}: not on the fused fold")
+            check(plan.branch == "pallas", f"stage {h}: not on the fused "
+                  "fold")
         _reset_counts()
         fk = f.clone().requires_grad_(True)
-        warp_mod.affine_transform_layer(fk, warps, masks, (256, 256),
-                                        windowed=True, plan=plan).backward(g)
+        warp_mod.apply_plan(fk, warps, plan, (256, 256)).backward(g)
         torch.cuda.synchronize()
         if backend == "matmul":
             ran = warp_fused.LAUNCHES["fold_route"] == 1 \
@@ -1735,13 +1720,11 @@ def phase_fold_h36m() -> None:
                         device="cuda").to(dtype)
         plan = warp_mod.plan_folds([tuple(f.shape)], warps, masks, dtype,
                                    windowed=True, static_empty=static)[0]
-        check(plan.windows is not None and not plan.xla and plan.fits,
+        check(plan.branch == "place",
               "the h36m batch does not take the kernel-placed fold at 224²")
         _reset_counts()
         fk = f.clone().requires_grad_(True)
-        out_k = warp_mod.affine_transform_layer(
-            fk, warps, masks, H36M, windowed=True, static_empty=static,
-            plan=plan)
+        out_k = warp_mod.apply_plan(fk, warps, plan, H36M)
         out_k.backward(g)
         torch.cuda.synchronize()
         one = _counts()
@@ -1797,7 +1780,7 @@ def phase_pallas_h36m() -> None:
         _reset_counts()
         out_pallas, _ = step(batch)
         one = _counts()
-        gen.warp_backend = "matmul"
+        gen.folds = dataclasses.replace(gen.folds, backend="matmul")
         out_matmul, _ = step(batch)
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -2034,8 +2017,8 @@ def _nn_loss_kernels(vgg, out_gen, gen_batch, cfg, flush) -> dict:
              lambda: nn_loss_mod._backward_plain(f_gen, f_tgt, want_idx, one,
                                                  a, a, False))):
         ops = nn_loss_ops(n, h, w, c, a, direction)
-        bound = _bound(nn_loss_bytes(n, h, w, c, direction, reached), ops)
-        shape_ms = _bound(nn_loss_bytes(n, h, w, c, direction), ops)[
+        bound = _least_time(nn_loss_bytes(n, h, w, c, direction, reached), ops)
+        shape_ms = _least_time(nn_loss_bytes(n, h, w, c, direction), ops)[
             "bound_ms"]
         ms = time_cuda(kernel, iters, flush)
         out[f"nn_loss_{direction}"] = {
@@ -2083,7 +2066,8 @@ def phase_stacked(card: str) -> dict:
     reqs = make_requests(np.random.default_rng(9), BATCH + 3, (256, 256))
     total, full = {}, {}
     for backend in ("matmul", "pallas"):
-        gen.generator.warp_backend = backend
+        gen.generator.folds = dataclasses.replace(gen.generator.folds,
+                                                  backend=backend)
         bcfg = dataclasses.replace(cfg, warp_backend=backend)
         torch.cuda.reset_peak_memory_stats()
         with PoseTransferServer(bcfg, gen, max_wait_ms=200.0) as srv:
@@ -2126,12 +2110,14 @@ def phase_stacked(card: str) -> dict:
     calls = []
     hook = gen.generator.register_forward_hook(
         lambda m, args, out: calls.append((args, out)))
-    gen.generator.warp_backend = "matmul"
+    gen.generator.folds = dataclasses.replace(gen.generator.folds,
+                                              backend="matmul")
     try:
         make_eval_step(cfg, gen)(batch)
     finally:
         hook.remove()
-    gen.generator.warp_backend = "pallas"
+    gen.generator.folds = dataclasses.replace(gen.generator.folds,
+                                              backend="pallas")
     stages = []
     with torch.inference_mode():
         for args, ref in calls:

@@ -42,8 +42,7 @@ from torch import nn
 from ..core import pose as pose_ops
 from ..core import transforms_host as th
 from ..ops.norm import volume_instance_norm
-from ..ops.warp import (affine_transform_layer, check_backend, check_place,
-                        plan_folds)
+from ..ops.warp import FoldSettings, apply_plan
 from ..utils.spans import span
 
 
@@ -203,11 +202,12 @@ class DeformableGenerator(nn.Module):
     ``forward(inp, warps, masks)``: inp (N, H, W, 3+2K) packed input,
     warps (N, T, 8), masks (N, T, H, W) or None → (N, H, W, 3) in [-1, 1].
     The appearance skips of the first ``num_warp_stages`` stages go
-    through ``affine_transform_layer``; ``warp_backend`` 'pallas' sends the
+    through ``ops.warp.apply_plan``; ``warp_backend`` 'pallas' sends the
     stages the fused warp fold supports to it (``ops/warp_pallas.py``),
     'exact' every stage to the gather-bilinear fold;
     ``warp_place`` ('auto' | 'kernel' | 'xla') chooses the windowed fold's
-    placement (``ops.warp.plan_folds``).
+    placement. The fold's settings are checked once, here, into ``folds``
+    (``ops.warp.FoldSettings``), which plans each forward's fold instances.
     """
 
     def __init__(self, pose_dim: int, image_size: tuple[int, int],
@@ -218,17 +218,16 @@ class DeformableGenerator(nn.Module):
                  warp_place: str = "auto",
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        check_backend(warp_backend)
-        check_place(warp_place)
+        # parts whose joints don't exist in this schema are empty for EVERY
+        # sample (pose_dim 16: head + 4 knee-adjacent limbs)
+        static_empty = th.static_empty_parts(pose_dim) \
+            if warp_skip == "mask" else ()
+        self.folds = FoldSettings(warp_skip, warp_agg, warp_windowed,
+                                  static_empty, warp_backend, warp_place)
         self.pose_dim = pose_dim
         self.image_size = tuple(image_size)
-        self.warp_skip = warp_skip
-        self.warp_agg = warp_agg
         self.use_input_pose = use_input_pose
         self.num_warp_stages = num_warp_stages
-        self.warp_windowed = warp_windowed
-        self.warp_backend = warp_backend
-        self.warp_place = warp_place
         self.dtype = dtype
         # without the input pose the packed input is [image ‖ target pose]
         # and get_imgpose's target slice starts at 6: K - 3 channels
@@ -252,26 +251,17 @@ class DeformableGenerator(nn.Module):
         with span("gen.encoder_pose"):
             skips_pose = self.encoder_pose(nchw(tg_pose.contiguous()))
 
-        # parts whose joints don't exist in this schema are empty for EVERY
-        # sample (pose_dim 16: head + 4 knee-adjacent limbs)
-        static_empty = th.static_empty_parts(self.pose_dim) \
-            if self.warp_skip == "mask" else ()
         n_warp = min(self.num_warp_stages, len(skips_app))
         feats = [s.permute(0, 2, 3, 1).contiguous()
                  for s in skips_app[:n_warp]]
         warps = warps.to(self.dtype)
-        plans = plan_folds([tuple(f.shape) for f in feats], warps, masks,
-                           self.dtype, self.warp_skip, self.warp_agg,
-                           self.warp_windowed, static_empty,
-                           self.warp_backend, self.warp_place)
+        plans = self.folds.plan([tuple(f.shape) for f in feats], warps,
+                                masks, self.dtype)
         skips = []
         for i, (sk_app, sk_pose) in enumerate(zip(skips_app, skips_pose)):
             if i < n_warp:
-                warped = affine_transform_layer(
-                    feats[i], warps, masks, self.image_size, self.warp_skip,
-                    self.warp_agg, self.warp_windowed, static_empty,
-                    plan=plans[i])
-                sk_app = nchw(warped)
+                sk_app = nchw(apply_plan(feats[i], warps, plans[i],
+                                         self.image_size))
             skips.append(torch.cat([sk_app, sk_pose], dim=1))
         with span("gen.decoder"):
             return self.decoder(skips).permute(0, 2, 3, 1)

@@ -18,46 +18,46 @@ weights and roundings from the transforms, with no weight matrices (their
 f32 sums may differ from a product's in the last bit). Same math, same
 numbers.
 
-Three fold paths, chosen per fold instance:
-- the full scan (``_fold_scan``): every part warped at full resolution,
-  folded in order with strict ``>`` (earliest part wins ties);
-- the windowed, kernel-placed fold (``_fold_windowed_place``): the body at
-  full resolution, every other part only inside its mask's bounding-box
-  window, placed by ``ops.warp_fused.fold_place``. Exact: outside its window
-  a part's masked contribution is zero, which the zero pass restores;
-- the windowed fold with XLA-style placement (``_fold_windowed``, the JAX
-  package's ``place_impl='xla'``): the same windows, (h/2, w/2) and
-  unaligned, placed part by part by a gather, compare and scatter of each
-  window in plain PyTorch; the only windowed fold for ``warp_agg='avg'``.
-``place_impl`` chooses between the two windowed placements: 'xla' always
-the gather/scatter one; 'auto' and 'kernel' the placement kernel where the
-shape qualifies (``_use_place_kernel``), else the gather/scatter one. (The
-JAX package's 'auto' takes the kernel only on a TPU; the port's kernel runs
-wherever the fold runs, so 'auto' is 'kernel'.)
-The windowed fold needs every non-body part's support to fit its window.
-The JAX package decides that with one ``lax.cond`` per fold instance; here
-``plan_folds`` decides it for all fold instances of a forward with one host
-sync.
+Each fold instance takes one of six branches. ``plan_folds`` decides it
+once, with the instance's windows, batch chunk and part group, and records
+them in the instance's ``FoldPlan``; ``apply_plan`` runs an instance on
+its plan, and ``_BRANCHES`` runs each branch forward, backward and under
+autograd:
+- 'scan' (``_fold_scan``): every part warped at full resolution, folded in
+  order with strict ``>`` (earliest part wins ties);
+- 'place' (``_fold_windowed_place``): the body at full resolution, every
+  other part only inside its mask's bounding-box window, placed by
+  ``ops.warp_fused.fold_place``. Exact: outside its window a part's masked
+  contribution is zero, which the zero pass restores;
+- 'xla' (``_fold_windowed``, the JAX package's ``place_impl='xla'``): the
+  same windows, (h/2, w/2) and unaligned, placed part by part by a gather,
+  compare and scatter in plain PyTorch; the only windowed fold for
+  ``warp_agg='avg'``;
+- 'fallback': windowable, but some part's support outgrew its window: the
+  full scan, where the JAX package's ``lax.cond`` takes it (``COUNTS``);
+- 'pallas' and 'exact': the other two backends, below.
+The placement is 'xla' (always the gather/scatter one) or 'auto' /
+'kernel', one value here (``kernel_places``): the placement kernel where
+the shape qualifies. (The JAX package's 'auto' takes the kernel only on a
+TPU; the port's kernel runs wherever the fold runs.) Whether every part
+fits its window is resolved for all fold instances of a forward with one
+host sync.
 
 The backward (``WarpFold``, the counterpart of ``warp_fold_matmul``'s custom
 VJP) saves no feature maps: the warp is linear in the features, so it
 routes the cotangent through the argmax and the transposed two-pass warps,
-recomputing their taps. The kernel-placed branch routes with the
-``fold_route`` kernel; warps and masks get no gradient (host data).
+recomputing their taps ('place' routes with the ``fold_route`` kernel);
+warps and masks get no gradient (host data).
 
-``backend='pallas'`` (the JAX package's ``warp_backend='pallas'``) sends
-every fold instance whose shape passes ``warp_pallas.supported`` and whose
-fold is a max to the fused two-pass warp fold of ``ops/warp_pallas.py``
-(forward and backward kernels, ``WarpFoldPallas``); the other instances
-take the branches above, as in the JAX package (``warp.py:1282-1293``).
-
-``backend='exact'`` (the JAX package's ``warp_backend='exact'``) warps each
-part directly: four bilinear taps gathered per output pixel at its
-transformed position (``warp_feature_single``, ``grid_sample`` semantics
-with zero padding), folded in part order by ``torch.maximum`` (or summed
-for 'avg') and recomputed in the backward (``torch.utils.checkpoint``, as
-the JAX package's ``jax.checkpoint``). It plans no windows and launches no
-kernel: the JAX package has no Pallas kernel for it.
+``backend='pallas'`` sends every max fold instance whose shape passes
+``warp_pallas.supported`` to the fused two-pass warp fold of
+``ops/warp_pallas.py`` (``WarpFoldPallas``); the others take the branches
+above, as in the JAX package (``warp.py:1282-1293``). ``backend='exact'``
+warps each part directly (``warp_feature_single``: four bilinear taps
+gathered at the transformed position, ``grid_sample`` semantics with zero
+padding), folds in part order by ``torch.maximum`` (or sums for 'avg') and
+recomputes in the backward (``torch.utils.checkpoint``, as the JAX
+package's ``jax.checkpoint``); it plans no windows and launches no kernel.
 
 Spans (``utils.spans``, while a profiler records): ``fold.plan`` around
 ``plan_folds`` with ``fold.plan_sync`` around its one host sync;
@@ -65,15 +65,15 @@ Spans (``utils.spans``, while a profiler records): ``fold.plan`` around
 ``fold.bwd.<h>x<w>`` around ``WarpFold``'s backward, both with the
 instance's ``FoldPlan.branch``.
 
-Two environment variables bound the kernel-placed fold's memory, as in the
-JAX package (``warp.py:436-553``, ``:870-1018``), and are read at every
-call (the JAX package reads them when it traces):
-- ``PT_WARP_PLACE_CHUNK_MB`` (default 3072): the batch runs through the
-  whole fold, forward and backward, in chunks of ``_place_batch_chunk``
-  samples, a smaller call for the remainder;
-- ``PT_WARP_JOINT_GROUP`` (default 0, no grouping): the windowed warps of
-  the parts run in groups of that many parts, forward (kernel-placed
-  fold) and backward (both windowed folds).
+Two environment variables bound the windowed folds' memory, as in the JAX
+package (``warp.py:436-553``, ``:870-1018``). They are read when a fold
+instance is planned (the JAX package reads them when it traces), and its
+forward and backward take them from the plan:
+- ``PT_WARP_PLACE_CHUNK_MB`` (default 3072): 'place' runs the batch in
+  chunks of ``_place_batch_chunk`` samples (``FoldPlan.chunk``);
+- ``PT_WARP_JOINT_GROUP`` (default 0, no grouping): the windowed warps run
+  in groups of that many parts, forward ('place') and backward ('place'
+  and 'xla') (``FoldPlan.group``).
 
 Transforms are (T, 8) row-major first-8 of a 3×3 matrix acting on (x, y, 1),
 estimated at ``init_image_size``; translations are rescaled per feature
@@ -85,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import typing
 
 import numpy as np
 import torch
@@ -197,26 +198,23 @@ def warp_feature_single(features: torch.Tensor, warps: torch.Tensor,
     return bilinear_sample(features, v.detach(), u.detach())
 
 
-def _fold_exact(features, warps, masks_r, init_image_size, warp_agg):
-    """The 'exact' fold: every part warped by ``warp_feature_single``,
-    masked, and folded in part order by ``torch.maximum`` from -inf (a tie
-    splits the cotangent in half, as ``jnp.maximum``'s does) or summed in
-    the features' dtype and divided by the part count."""
+def _fold_exact(features, warps, plan, init_image_size):
+    """The 'exact' fold: every part warped by
+    ``warp_feature_single``, masked, and folded in part order by
+    ``torch.maximum`` from -inf (a tie splits the cotangent in half, as
+    ``jnp.maximum``'s does) or summed in the features' dtype and divided by
+    the part count."""
     n, h, w, c = features.shape
     t = warps.shape[1]
-    if warp_agg == "max":
-        acc = torch.full((n, h, w, c), float("-inf"), dtype=features.dtype,
-                         device=features.device)
-    else:
-        acc = torch.zeros((n, h, w, c), dtype=features.dtype,
-                          device=features.device)
+    is_max = plan.warp_agg == "max"
+    acc = torch.full((n, h, w, c), float("-inf") if is_max else 0.0,
+                     dtype=features.dtype, device=features.device)
     for i in range(t):
         warped = warp_feature_single(features, warps[:, i], init_image_size)
-        if masks_r is not None:
-            warped = warped * masks_r[:, i][..., None]
-        acc = torch.maximum(acc, warped) if warp_agg == "max" \
-            else acc + warped
-    return acc / t if warp_agg == "avg" else acc
+        if plan.masks_r is not None:
+            warped = warped * plan.masks_r[:, i][..., None]
+        acc = torch.maximum(acc, warped) if is_max else acc + warped
+    return acc if is_max else acc / t
 
 
 def _ramp(pos: torch.Tensor, n_in: int, dtype: torch.dtype) -> torch.Tensor:
@@ -314,7 +312,7 @@ def _warp_win(features: torch.Tensor, warps: torch.Tensor,
     as the JAX package's ``preferred_element_type`` dots do. On the card
     the ``warp_taps`` kernel computes them from their taps; on the CPU the
     banded products (``_warp_win_banded``), as on the card inside
-    ``banded_warps``.
+    ``banded_warps``. This is the one place that chooses between them.
     """
     if features.is_cuda and not _banded_on_card:
         _, h, w, _ = features.shape
@@ -345,25 +343,28 @@ def _warp_win_banded(features: torch.Tensor, warps: torch.Tensor,
 def _joint_group() -> int:
     """Parts per joint contraction group, forward (the kernel-placed
     fold's windowed warps) and backward (the joint transposed warp), from
-    ``PT_WARP_JOINT_GROUP`` at each call: 0 (the default, and any value
-    below 1) means all parts in one contraction. JAX's ``_joint_group``."""
+    ``PT_WARP_JOINT_GROUP``, read when a fold instance is planned: 0 (the
+    default, and any value below 1) means all parts in one contraction.
+    JAX's ``_joint_group``."""
     return max(0, int(os.environ.get("PT_WARP_JOINT_GROUP", "0") or 0))
+
+
+def _part_groups(p: int, group: int) -> list[slice]:
+    """The part slices of a joint warp: all P parts, or groups of
+    ``group`` parts (``FoldPlan.group``, JAX's ``_joint_group``)."""
+    return _batch_chunks(p, group) if 0 < group < p else [slice(0, p)]
 
 
 def _warp_win_joint(features: torch.Tensor, warps: torch.Tensor,
                     y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int,
-                    init_image_size: tuple[int, int]) -> torch.Tensor:
-    """``_warp_win`` of all parts, or under ``PT_WARP_JOINT_GROUP`` one
-    ``_warp_win`` per group of parts, concatenated on the part axis (JAX's
-    ``_warp_batch_win_joint``)."""
-    p = warps.shape[1]
-    group = _joint_group() or p
-    if group >= p:
-        return _warp_win(features, warps, y0, x0, s_y, s_x, init_image_size)
-    return torch.cat([
-        _warp_win(features, warps[:, k:k + group], y0[:, k:k + group],
-                  x0[:, k:k + group], s_y, s_x, init_image_size)
-        for k in range(0, p, group)], dim=1)
+                    init_image_size: tuple[int, int],
+                    group: int) -> torch.Tensor:
+    """``_warp_win`` of each part group, concatenated on the part axis
+    (JAX's ``_warp_batch_win_joint``)."""
+    wins = [_warp_win(features, warps[:, s], y0[:, s], x0[:, s], s_y, s_x,
+                      init_image_size)
+            for s in _part_groups(warps.shape[1], group)]
+    return wins[0] if len(wins) == 1 else torch.cat(wins, dim=1)
 
 
 def _warp_full(features: torch.Tensor, warps: torch.Tensor,
@@ -385,28 +386,14 @@ def _warp_win_t(g_wins: torch.Tensor, warps: torch.Tensor,
     Same taps and weights, passes in reverse order: on the card the
     ``warp_taps_t`` kernel gathers them; on the CPU (and inside
     ``banded_warps``) the banded weights, contracted on the other sides
-    (``_warp_win_t_banded``). Pass 1 rounds
-    to the cotangents' dtype (f32 accumulate, one rounding). ``joint``:
-    pass 2 contracts the (part, window row) axes together and returns f32
-    — JAX's ``_warp_batch_t_win_joint``; its operands are upcast, which is
-    exact for bf16 values, so the sum is the f32 accumulation of the bf16
-    products; under ``PT_WARP_JOINT_GROUP``
-    one such contraction per group of parts (``_joint_group``). Otherwise
-    pass 2 rounds to the cotangents' dtype too (``warp_feature_matmul_t``).
+    (``_warp_win_t_banded``). Pass 1 rounds to the cotangents' dtype (f32
+    accumulate, one rounding). ``joint``: pass 2 contracts the (part,
+    window row) axes together and returns f32 — JAX's
+    ``_warp_batch_t_win_joint``; its operands are upcast, which is exact
+    for bf16 values, so the sum is the f32 accumulation of the bf16
+    products. Otherwise pass 2 rounds to the cotangents' dtype too
+    (``warp_feature_matmul_t``).
     """
-    p = g_wins.shape[1]
-    group = _joint_group() if joint else 0
-    if 0 < group < p:
-        # PT_WARP_JOINT_GROUP: one joint contraction per group of parts,
-        # the groups' f32 gradients added in group order, as JAX's
-        # ``_warp_batch_t_win_joint``
-        df = None
-        for k in range(0, p, group):
-            sl = slice(k, k + group)
-            dfk = _warp_win_t(g_wins[:, sl], warps[:, sl], y0[:, sl],
-                              x0[:, sl], h, w, init_image_size, joint=True)
-            df = dfk if df is None else df + dfk
-        return df
     if g_wins.is_cuda and not _banded_on_card:
         return warp_fused.warp_taps_t(
             g_wins.contiguous(),
@@ -419,8 +406,8 @@ def _warp_win_t_banded(g_wins: torch.Tensor, warps: torch.Tensor,
                        y0: torch.Tensor, x0: torch.Tensor, h: int, w: int,
                        init_image_size: tuple[int, int],
                        joint: bool) -> torch.Tensor:
-    """``_warp_win_t`` of one contraction as products by the transposed
-    banded weights of ``_two_pass_weights``."""
+    """``_warp_win_t`` as products by the transposed banded weights of
+    ``_two_pass_weights``."""
     n, p, s_y, s_x, c = g_wins.shape
     wy, wx = _two_pass_weights(warps, h, w, init_image_size, g_wins.dtype,
                                y0, x0, s_y, s_x)
@@ -432,6 +419,20 @@ def _warp_win_t_banded(g_wins: torch.Tensor, warps: torch.Tensor,
     if joint:
         wyt, dtmp = wyt.float(), dtmp.float()
     return torch.matmul(wyt, dtmp).permute(0, 2, 1, 3)
+
+
+def _warp_win_t_joint(g_wins: torch.Tensor, warps: torch.Tensor,
+                      y0: torch.Tensor, x0: torch.Tensor, h: int, w: int,
+                      init_image_size: tuple[int, int],
+                      group: int) -> torch.Tensor:
+    """``_warp_win_t(joint=True)`` of each part group, the groups' f32
+    gradients added in group order (JAX's ``_warp_batch_t_win_joint``)."""
+    df = None
+    for s in _part_groups(g_wins.shape[1], group):
+        dfs = _warp_win_t(g_wins[:, s], warps[:, s], y0[:, s], x0[:, s], h,
+                          w, init_image_size, joint=True)
+        df = dfs if df is None else df + dfs
+    return df
 
 
 def _warp_full_t(g: torch.Tensor, warps: torch.Tensor,
@@ -491,17 +492,6 @@ def _windowable(h: int, w: int) -> bool:
     return not (h % 2 or w % 2 or min(h // 2, w // 2) < 32)
 
 
-def _fold_windows(masks_r, h: int, w: int, windowed: bool, x_align: int = 1,
-                  sizes=None):
-    """The ``_support_windows`` tuple when windowing applies (masks and a
-    ``_windowable`` shape), else None; ``sizes`` overrides the (h//2, w//2)
-    windows (the placement kernel widens s_x)."""
-    if not windowed or masks_r is None or not _windowable(h, w):
-        return None
-    s_y, s_x = sizes if sizes is not None else (h // 2, w // 2)
-    return _support_windows(masks_r, s_y, s_x, x_align)
-
-
 def _kernel_window_sizes(h: int, w: int):
     """(s_y, s_x) of the placement kernel's windows, or None: s_x is
     widened by X_ALIGN so that an aligned start still covers any support
@@ -516,23 +506,6 @@ def _place_actives(t: int, static_empty: tuple[int, ...]) -> tuple[int, ...]:
     """Fold order of the windowed (non-body) parts; idx stores these
     ORIGINAL part indices."""
     return tuple(i for i in range(1, t) if i not in static_empty)
-
-
-PLACE_IMPLS = ("auto", "kernel", "xla")
-
-
-def _use_place_kernel(place_impl, h, w, c, t, warp_agg, has_masks, windowed,
-                      static_empty) -> bool:
-    """Whether this fold instance may take the windowed, kernel-placed
-    fold (before the data-dependent fit check); 'xla' never does."""
-    if place_impl == "xla" or not windowed or not has_masks \
-            or warp_agg != "max":
-        return False
-    if not _windowable(h, w):
-        return False
-    sizes = _kernel_window_sizes(h, w)
-    return sizes is not None and warp_fused.supported(h, w, c, *sizes) \
-        and bool(_place_actives(t, static_empty))
 
 
 def _win_at(y0: torch.Tensor, x0: torch.Tensor, s_y: int, s_x: int):
@@ -612,15 +585,15 @@ def _place_offs(y0: torch.Tensor, x0: torch.Tensor, sel) -> torch.Tensor:
         .to(torch.int32).contiguous()
 
 
-def _place_args(masks_r, windows, h, w, t, static_empty):
+def _place_args(plan, t):
     """The placed parts' shared inputs of ``fold_place`` and
-    ``fold_route``: (sel, mwins, offs) — the active part indices, their
-    (N, P, S_y, S_x) mask windows and (N, P, 3) int32 [y0, x0, part]."""
-    y0, x0 = windows
-    s_y, s_x = _kernel_window_sizes(h, w)
-    sel = list(_place_actives(t, static_empty))
-    mwins = _slice_win(masks_r[:, sel], y0[:, sel], x0[:, sel], s_y,
-                       s_x).contiguous()
+    ``fold_route`` for a 'place' plan of T parts: (sel, mwins, offs) — the
+    active part indices, their (N, P, S_y, S_x) mask windows and (N, P, 3)
+    int32 [y0, x0, part]."""
+    y0, x0 = plan.windows
+    sel = list(_place_actives(t, plan.static_empty))
+    mwins = _slice_win(plan.masks_r[:, sel], y0[:, sel], x0[:, sel],
+                       *plan.sizes).contiguous()
     return sel, mwins, _place_offs(y0, x0, sel)
 
 
@@ -631,12 +604,13 @@ def _place_batch_chunk(n, h, w, c, p, itemsize) -> int:
     The fold's transient stacks grow with the batch. JAX's estimate per
     sample counts the joint pass-1 stack (P, S_y, W, C) and the wins stack
     (P, S_y, S_x, C): ``p·s_y·(w + s_x)·c·itemsize`` bytes. While the batch
-    fits ``PT_WARP_PLACE_CHUNK_MB`` (default 3072; read at each call) it
-    runs in one call, else in chunks of as many samples as fit, at least
-    one (an empty value is the default; 0 and below give 1-sample chunks,
-    as in JAX). On the card the warps' taps are computed in the kernels,
-    with no weight matrices, so the estimate leaves nothing out there; the
-    CPU's banded weights, which JAX fuses into its dots, are not in it.
+    fits ``PT_WARP_PLACE_CHUNK_MB`` (default 3072; read when a fold
+    instance is planned) it runs in one call, else in chunks of as many
+    samples as fit, at least one (an empty value is the default; 0 and
+    below give 1-sample chunks, as in JAX). On the card the warps' taps are
+    computed in the kernels, with no weight matrices, so the estimate
+    leaves nothing out there; the CPU's banded weights, which JAX fuses
+    into its dots, are not in it.
     """
     s_y, s_x = _kernel_window_sizes(h, w)
     cap = int(os.environ.get("PT_WARP_PLACE_CHUNK_MB", "3072") or 3072)
@@ -652,85 +626,74 @@ def _batch_chunks(n: int, chunk: int) -> list[slice]:
     return [slice(a, min(a + chunk, n)) for a in range(0, n, chunk)]
 
 
-def _fold_windowed_place(features, warps, masks_r, init_image_size,
-                         windows, static_empty=(), emit_idx=True):
-    """Kernel-placed windowed max fold → (out, idx).
+def _zero_nb(plan, n, h, w) -> torch.Tensor:
+    """(N, h, w) bool: some non-body part contributes an exact zero (at
+    EVERY pixel where a part is statically empty), for the zero pass."""
+    if plan.static_empty:
+        return torch.ones((n, h, w), dtype=torch.bool,
+                          device=plan.masks_r.device)
+    return (plan.masks_r[:, 1:] == 0).any(dim=1)
+
+
+def _fold_windowed_place(features, warps, plan, init_image_size,
+                         emit_idx=True):
+    """Kernel-placed windowed max fold of a 'place' plan → (out, idx).
 
     The body (part 0) is warped at full resolution and pre-masked; every
     other active part only inside its window (one batched two-pass over
-    the parts, or one per ``PT_WARP_JOINT_GROUP`` group); ``fold_place``
-    does the placement, mask multiply, max / argmax and the zero pass. idx
-    stores ORIGINAL part indices. A batch over ``_place_batch_chunk`` runs
+    the parts, or one per part group, ``plan.group``); ``fold_place`` does
+    the placement, mask multiply, max / argmax and the zero pass. idx
+    stores ORIGINAL part indices. A batch over ``plan.chunk`` samples runs
     chunk by chunk, one ``fold_place`` launch each: every sample's fold is
     independent, so only the chunk's transients are alive at a time.
     """
-    n, h, w, c = features.shape
-    p = len(_place_actives(warps.shape[1], static_empty))
-    chunk = _place_batch_chunk(n, h, w, c, p, features.element_size())
-    if chunk >= n:
-        return _fold_windowed_place_chunk(features, warps, masks_r,
-                                          init_image_size, windows,
-                                          static_empty, emit_idx)
-    y0, x0 = windows
+    n = features.shape[0]
+    if plan.chunk >= n:
+        return _fold_windowed_place_chunk(features, warps, plan,
+                                          init_image_size, emit_idx)
     out = torch.empty_like(features)
     idx = torch.empty(features.shape, dtype=torch.int8,
                       device=features.device) if emit_idx else None
-    for sl in _batch_chunks(n, chunk):
-        o, i = _fold_windowed_place_chunk(
-            features[sl], warps[sl], masks_r[sl], init_image_size,
-            (y0[sl], x0[sl]), static_empty, emit_idx)
+    for sl in _batch_chunks(n, plan.chunk):
+        o, i = _fold_windowed_place_chunk(features[sl], warps[sl],
+                                          plan.samples(sl), init_image_size,
+                                          emit_idx)
         out[sl] = o
         if emit_idx:
             idx[sl] = i
     return out, idx
 
 
-def _fold_windowed_place_chunk(features, warps, masks_r, init_image_size,
-                               windows, static_empty, emit_idx):
+def _fold_windowed_place_chunk(features, warps, plan, init_image_size,
+                               emit_idx):
     """``_fold_windowed_place`` on one call's samples."""
-    n, h, w, c = features.shape
-    t = warps.shape[1]
-    y0, x0 = windows
-    s_y, s_x = _kernel_window_sizes(h, w)
-    sel, mwins, offs = _place_args(masks_r, windows, h, w, t, static_empty)
-
+    n, h, w, _ = features.shape
+    masks_r, (y0, x0) = plan.masks_r, plan.windows
+    sel, mwins, offs = _place_args(plan, warps.shape[1])
     body = _warp_full(features, warps[:, 0], init_image_size)
     body = body * masks_r[:, 0][..., None]
     wins = _warp_win_joint(features, warps[:, sel], y0[:, sel], x0[:, sel],
-                           s_y, s_x, init_image_size)
-    if static_empty:
-        # a statically-empty part contributes zero at EVERY pixel
-        zero_nb = torch.ones((n, h, w), dtype=torch.bool,
-                             device=features.device)
-    else:
-        zero_nb = (masks_r[:, 1:] == 0).any(dim=1)
+                           *plan.sizes, init_image_size, plan.group)
     return warp_fused.fold_place(body.contiguous(), wins.contiguous(), mwins,
-                                 zero_nb.contiguous(), offs, emit_idx)
+                                 _zero_nb(plan, n, h, w).contiguous(), offs,
+                                 emit_idx)
 
 
-def _fold_windowed_place_bwd(g, warps, masks_r, idx, init_image_size,
-                             windows, static_empty=()):
+def _fold_windowed_place_bwd(g, warps, idx, plan, init_image_size):
     """Backward of ``_fold_windowed_place`` → f32 feature gradient, in the
-    forward's chunks (``_place_batch_chunk`` re-derived from g's dtype, as
-    in JAX), one ``fold_route`` launch each."""
-    n, h, w, c = g.shape
-    p = len(_place_actives(warps.shape[1], static_empty))
-    chunk = _place_batch_chunk(n, h, w, c, p, g.element_size())
-    if chunk >= n:
-        return _fold_windowed_place_bwd_chunk(g, warps, masks_r, idx,
-                                              init_image_size, windows,
-                                              static_empty)
-    y0, x0 = windows
+    forward's chunks (``plan.chunk``), one ``fold_route`` launch each."""
+    n = g.shape[0]
+    if plan.chunk >= n:
+        return _fold_windowed_place_bwd_chunk(g, warps, idx, plan,
+                                              init_image_size)
     df = torch.empty(g.shape, dtype=torch.float32, device=g.device)
-    for sl in _batch_chunks(n, chunk):
+    for sl in _batch_chunks(n, plan.chunk):
         df[sl] = _fold_windowed_place_bwd_chunk(
-            g[sl], warps[sl], masks_r[sl], idx[sl], init_image_size,
-            (y0[sl], x0[sl]), static_empty)
+            g[sl], warps[sl], idx[sl], plan.samples(sl), init_image_size)
     return df
 
 
-def _fold_windowed_place_bwd_chunk(g, warps, masks_r, idx, init_image_size,
-                                   windows, static_empty):
+def _fold_windowed_place_bwd_chunk(g, warps, idx, plan, init_image_size):
     """``_fold_windowed_place_bwd`` on one call's samples.
 
     The mask windows and offsets are rebuilt from the saved masks and
@@ -741,20 +704,19 @@ def _fold_windowed_place_bwd_chunk(g, warps, masks_r, idx, init_image_size,
     the parts (f32).
     """
     _, h, w, _ = g.shape
-    y0, x0 = windows
-    sel, mwins, offs = _place_args(masks_r, windows, h, w, warps.shape[1],
-                                   static_empty)
-    gwins, gbody = warp_fused.fold_route(g, idx, masks_r[:, 0].contiguous(),
-                                         mwins, offs)
+    y0, x0 = plan.windows
+    sel, mwins, offs = _place_args(plan, warps.shape[1])
+    gwins, gbody = warp_fused.fold_route(
+        g, idx, plan.masks_r[:, 0].contiguous(), mwins, offs)
     df0 = _warp_full_t(gbody, warps[:, 0], init_image_size).float()
-    dfp = _warp_win_t(gwins, warps[:, sel], y0[:, sel], x0[:, sel], h, w,
-                      init_image_size, joint=True)
-    return df0 + dfp
+    return df0 + _warp_win_t_joint(gwins, warps[:, sel], y0[:, sel],
+                                   x0[:, sel], h, w, init_image_size,
+                                   plan.group)
 
 
-def _fold_windowed(features, warps, masks_r, init_image_size, warp_agg,
-                   windows, static_empty=(), emit_idx=True):
-    """Windowed fold with XLA-style placement → (out, idx).
+def _fold_windowed(features, warps, plan, init_image_size, emit_idx=True):
+    """Windowed fold with XLA-style placement of an 'xla' plan → (out,
+    idx).
 
     The body (part 0, masked) at full resolution; every other active part
     only inside its (h/2, w/2) window, warped on its own, masked, and
@@ -768,19 +730,18 @@ def _fold_windowed(features, warps, masks_r, init_image_size, warp_agg,
     """
     n, h, w, c = features.shape
     t = warps.shape[1]
-    y0, x0 = windows
-    s_y, s_x = h // 2, w // 2
-    sel = _place_actives(t, static_empty)
+    masks_r, (y0, x0), (s_y, s_x) = plan.masks_r, plan.windows, plan.sizes
     body = _warp_full(features, warps[:, 0], init_image_size) \
         * masks_r[:, 0][..., None]
-    if warp_agg == "max":
+    is_max = plan.warp_agg == "max"
+    if is_max:
         acc = body
         idx = torch.zeros(acc.shape, dtype=torch.int8,
                           device=acc.device) if emit_idx else None
     else:
         acc = body.float()
         idx = None
-    for i in sel:
+    for i in _place_actives(t, plan.static_empty):
         yi, xi = y0[:, i:i + 1], x0[:, i:i + 1]
         win = _warp_win(features, warps[:, i:i + 1], yi, xi, s_y, s_x,
                         init_image_size)
@@ -788,118 +749,181 @@ def _fold_windowed(features, warps, masks_r, init_image_size, warp_agg,
                                s_x)[..., None]
         at = _win_at(yi, xi, s_y, s_x)
         cur = acc[at]
-        if warp_agg != "max":
+        if not is_max:
             acc[at] = cur + win.float()
             continue
         take = win > cur
         acc[at] = torch.where(take, win, cur)
         if emit_idx:
             idx[at] = torch.where(take, torch.full_like(idx[at], i), idx[at])
-    if warp_agg != "max":
+    if not is_max:
         return (acc / t).to(features.dtype), None
-    if static_empty:
-        # a statically-empty part contributes zero at EVERY pixel
-        zero_exists = torch.ones((n, h, w), dtype=torch.bool,
-                                 device=acc.device)
-    else:
-        zero_exists = (masks_r[:, 1:] == 0).any(dim=1)
-    take0 = zero_exists[..., None] & (acc < 0)
+    take0 = _zero_nb(plan, n, h, w)[..., None] & (acc < 0)
     acc = acc.masked_fill(take0, 0)
     if emit_idx:
         idx.masked_fill_(take0, -1)
     return acc, idx
 
 
-def _fold_windowed_bwd(g, warps, masks_r, idx, init_image_size, warp_agg,
-                       windows, static_empty=()):
+def _fold_windowed_bwd(g, warps, idx, plan, init_image_size):
     """Backward of ``_fold_windowed`` → f32 feature gradient: the body's
     cotangent (g where idx is 0 for 'max', g/T for 'avg', times its mask)
     through the full-map transposed warp; each active part's window of the
     cotangent (g where idx is its ORIGINAL index, or g/T, times its mask
-    window) through one joint transposed warp over the parts."""
+    window) through one joint transposed warp over the parts (or one per
+    part group, ``plan.group``)."""
     _, h, w, _ = g.shape
     t = warps.shape[1]
-    y0, x0 = windows
-    s_y, s_x = h // 2, w // 2
+    masks_r, (y0, x0), (s_y, s_x) = plan.masks_r, plan.windows, plan.sizes
+    is_max = plan.warp_agg == "max"
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
-    gm0 = torch.where(idx == 0, g, zero) if warp_agg == "max" else g / t
+    gm0 = torch.where(idx == 0, g, zero) if is_max else g / t
     df0 = _warp_full_t(gm0 * masks_r[:, 0][..., None], warps[:, 0],
                        init_image_size).float()
-    sel = list(_place_actives(t, static_empty))
+    sel = list(_place_actives(t, plan.static_empty))
     if not sel:
         return df0
     ys, xs = y0[:, sel], x0[:, sel]
     at = _win_at(ys, xs, s_y, s_x)
-    if warp_agg == "max":
+    if is_max:
         parts = torch.tensor(sel, dtype=idx.dtype, device=g.device)
         gm = torch.where(idx[at] == parts[:, None, None, None], g[at], zero)
     else:
         gm = g[at] / t
     gm = gm * _slice_win(masks_r[:, sel], ys, xs, s_y, s_x)[..., None]
-    return df0 + _warp_win_t(gm, warps[:, sel], ys, xs, h, w,
-                             init_image_size, joint=True)
+    return df0 + _warp_win_t_joint(gm, warps[:, sel], ys, xs, h, w,
+                                   init_image_size, plan.group)
 
 
-def _fold_scan_bwd(g, warps, masks_r, idx, init_image_size, warp_agg,
-                   static_empty=()):
+def _fold_scan_bwd(g, warps, idx, plan, init_image_size):
     """Backward of ``_fold_scan`` → f32 feature gradient: each active
     part's cotangent (g where idx is its COMPACTED position for 'max', g/T
     for 'avg'), times its mask, transpose-warped in g's dtype and summed in
     f32."""
     t = warps.shape[1]
-    active = [i for i in range(t) if i not in static_empty]
+    active = [i for i in range(t) if i not in plan.static_empty]
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
     df = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
     for k, i in enumerate(active):
-        gm = torch.where(idx == k, g, zero) if warp_agg == "max" else g / t
-        if masks_r is not None:
-            gm = gm * masks_r[:, i][..., None]
+        gm = torch.where(idx == k, g, zero) if plan.warp_agg == "max" \
+            else g / t
+        if plan.masks_r is not None:
+            gm = gm * plan.masks_r[:, i][..., None]
         df += _warp_full_t(gm, warps[:, i], init_image_size).float()
     return df
 
 
 @dataclasses.dataclass
 class FoldPlan:
-    """One fold instance's inputs that depend only on the masks: the
-    resized masks and, when the windowed fold applies, its window starts
-    and placement."""
+    """Every decision about one fold instance, made once by
+    ``plan_folds``: the resized masks, the aggregation and static-empty
+    parts, the ``branch`` ('place', 'xla', 'scan', 'fallback', 'pallas' or
+    'exact', see the module's docstring) and, for the windowed branches,
+    the window starts and sizes, the part group (``PT_WARP_JOINT_GROUP``)
+    and for 'place' the batch chunk (``PT_WARP_PLACE_CHUNK_MB``)."""
     masks_r: torch.Tensor | None
+    warp_agg: str = "max"
+    static_empty: tuple[int, ...] = ()
+    branch: str = "scan"
     windows: tuple[torch.Tensor, torch.Tensor] | None = None
-    fits: bool = False
-    pallas: bool = False       # the fused two-pass warp fold
-    xla: bool = False          # windows placed by _fold_windowed
-    exact: bool = False        # the gather-bilinear fold, _fold_exact
+    sizes: tuple[int, int] | None = None      # (s_y, s_x) of the windows
+    group: int = 0                             # parts per joint group
+    chunk: int = 0                             # samples per 'place' call
 
-    @property
-    def branch(self) -> str:
-        """The fold this instance takes: 'exact', 'pallas' (the fused
-        warp fold), 'place' or 'xla' (the windowed fold, kernel- or
-        XLA-style placed), 'fallback' (windowable, but a part outgrew its
-        window: the full scan, counted in ``COUNTS['scan_fallback']``) or
-        'scan' (the full scan)."""
-        if self.exact:
-            return "exact"
-        if self.pallas:
-            return "pallas"
-        if self.windows is None:
-            return "scan"
-        if not self.fits:
-            return "fallback"
-        return "xla" if self.xla else "place"
+    def samples(self, sl: slice) -> FoldPlan:
+        """This plan for the samples ``sl`` of its batch (a batch chunk)."""
+        y0, x0 = self.windows
+        return dataclasses.replace(self, masks_r=self.masks_r[sl],
+                                   windows=(y0[sl], x0[sl]))
 
 
-def check_place(place_impl: str) -> None:
-    """Raise on an unknown windowed placement."""
+PLACE_IMPLS = ("auto", "kernel", "xla")
+
+
+def _place(place_impl: str) -> str:
+    """The placement as the fold knows it: 'xla', or 'kernel' for 'auto'
+    and 'kernel'; raises on an unknown one."""
     if place_impl not in PLACE_IMPLS:
         raise ValueError(f"invalid place_impl {place_impl!r}; one of "
                          f"{PLACE_IMPLS}")
+    return "xla" if place_impl == "xla" else "kernel"
 
 
-def check_backend(backend: str) -> None:
-    """Raise on an unknown warp backend."""
-    if backend not in BACKENDS:
-        raise ValueError(f"invalid warp backend {backend!r}; one of "
-                         f"{BACKENDS}")
+def kernel_places(place_impl: str, warp_agg: str, device=None) -> bool:
+    """The kernel-placement rule: ``fold_place`` places a windowed max fold
+    unless the placement is 'xla' (where the shape qualifies). Given a
+    ``device``, whether the card's kernel places it there (a CUDA device;
+    the CPU runs its plain version): ``train.engine.auto_windowed``'s
+    question."""
+    return _place(place_impl) == "kernel" and warp_agg == "max" \
+        and (device is None or torch.device(device).type == "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldSettings:
+    """The fold settings of a generator, or of one direct ``plan_folds``
+    call, checked when made: an unknown backend or placement raises, and
+    ``place`` is normalised ('auto' is 'kernel'). ``plan`` makes a
+    forward's ``FoldPlan`` list from them."""
+    warp_skip: str = "mask"
+    warp_agg: str = "max"
+    windowed: bool = False
+    static_empty: tuple[int, ...] = ()
+    backend: str = "matmul"
+    place: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"invalid warp backend {self.backend!r}; one "
+                             f"of {BACKENDS}")
+        object.__setattr__(self, "place", _place(self.place))
+        object.__setattr__(self, "static_empty", tuple(self.static_empty))
+
+    def plan(self, shapes, warps: torch.Tensor, masks: torch.Tensor | None,
+             dtype: torch.dtype) -> list[FoldPlan]:
+        """``plan_folds`` under these settings."""
+        with span("fold.plan", instances=len(shapes)):
+            plans, pending = [], []
+            actives = _place_actives(warps.shape[1], self.static_empty)
+            kernel = kernel_places(self.place, self.warp_agg)
+            for n, h, w, c in shapes:
+                masks_r = None
+                if self.warp_skip == "mask":
+                    if masks is None:
+                        raise ValueError("warp_skip='mask' requires part "
+                                         "masks")
+                    masks_r = resize_bilinear(masks.to(dtype), (h, w))
+                plan = FoldPlan(masks_r, self.warp_agg, self.static_empty)
+                plans.append(plan)
+                if self.backend == "exact":
+                    plan.branch = "exact"
+                elif self.backend == "pallas" and self.warp_agg == "max" \
+                        and warp_pallas.supported(h, w):
+                    plan.branch = "pallas"
+                elif self.windowed and masks_r is not None \
+                        and _windowable(h, w):
+                    sizes = _kernel_window_sizes(h, w)
+                    if kernel and actives and sizes is not None \
+                            and warp_fused.supported(h, w, c, *sizes):
+                        plan.branch, align = "place", warp_fused.X_ALIGN
+                        plan.chunk = _place_batch_chunk(
+                            n, h, w, c, len(actives), dtype.itemsize)
+                    else:
+                        plan.branch, align = "xla", 1
+                        sizes = (h // 2, w // 2)
+                    y0, x0, fits, _ = _support_windows(masks_r, *sizes,
+                                                       align)
+                    plan.windows, plan.sizes = (y0, x0), sizes
+                    plan.group = _joint_group()
+                    pending.append((plan, fits[:, 1:].all()))
+            if pending:
+                flags = torch.stack([f for _, f in pending])
+                with span("fold.plan_sync"):
+                    flags = flags.tolist()
+                for (plan, _), ok in zip(pending, flags):
+                    if not ok:
+                        plan.branch = "fallback"
+            return plans
 
 
 def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
@@ -910,55 +934,17 @@ def plan_folds(shapes, warps: torch.Tensor, masks: torch.Tensor | None,
                place_impl: str = "auto") -> list[FoldPlan]:
     """Plan the fold instances of one forward, one per (N, h, w, C) shape.
 
-    Resizes the masks for every instance, marks the instances that take the
-    fused warp fold (``backend='pallas'``: a supported shape and a max
-    fold; they need no windows) or the gather-bilinear fold
-    (``backend='exact'``: every instance, no windows), computes every
-    other windowed instance's support windows for its placement
-    (``place_impl``: the kernel's widened, aligned windows, or the (h/2,
-    w/2) ones of the XLA-style placement), and
-    resolves all 'does every non-body part fit its window?' flags with ONE
-    host sync. A fold whose parts do not all fit takes the full scan, where
-    the JAX package's ``lax.cond`` takes it.
+    Resizes the masks for every instance and decides its branch: 'exact'
+    under ``backend='exact'``; 'pallas' for a supported max fold under
+    ``backend='pallas'``; for a windowed, masked instance of a windowable
+    shape 'place' where ``kernel_places`` and the kernel takes the shape
+    (widened, aligned windows), else 'xla' ((h/2, w/2) windows), either
+    one 'fallback' where some part does not fit its window (all fit flags
+    resolved with ONE host sync); else 'scan'. A generator checks its
+    settings once (``FoldSettings``) and calls ``FoldSettings.plan``.
     """
-    with span("fold.plan", instances=len(shapes)):
-        check_backend(backend)
-        check_place(place_impl)
-        plans, pending = [], []
-        t = warps.shape[1]
-        for n, h, w, c in shapes:
-            if warp_skip == "mask":
-                if masks is None:
-                    raise ValueError("warp_skip='mask' requires part masks")
-                masks_r = resize_bilinear(masks.to(dtype), (h, w))
-            else:
-                masks_r = None
-            plan = FoldPlan(masks_r)
-            if backend == "exact":
-                plan.exact = True
-            elif backend == "pallas" and warp_agg == "max" \
-                    and warp_pallas.supported(h, w):
-                plan.pallas = True
-            else:
-                kernel = _use_place_kernel(place_impl, h, w, c, t, warp_agg,
-                                           masks_r is not None, windowed,
-                                           static_empty)
-                windows = _fold_windows(masks_r, h, w, windowed,
-                                        warp_fused.X_ALIGN,
-                                        _kernel_window_sizes(h, w)) if kernel \
-                    else _fold_windows(masks_r, h, w, windowed)
-                if windows is not None:
-                    y0, x0, fits, _ = windows
-                    plan.windows, plan.xla = (y0, x0), not kernel
-                    pending.append((plan, fits[:, 1:].all()))
-            plans.append(plan)
-        if pending:
-            flags = torch.stack([f for _, f in pending])
-            with span("fold.plan_sync"):
-                flags = flags.tolist()
-            for (plan, _), ok in zip(pending, flags):
-                plan.fits = bool(ok)
-        return plans
+    return FoldSettings(warp_skip, warp_agg, windowed, static_empty, backend,
+                        place_impl).plan(shapes, warps, masks, dtype)
 
 
 def _pallas_args(features, warps, masks_r, init_image_size):
@@ -978,29 +964,25 @@ def _pallas_args(features, warps, masks_r, init_image_size):
     return features.contiguous(), warps_scaled, masks_r.contiguous()
 
 
-def _fold(features, warps, plan, init_image_size, warp_agg, static_empty,
-          emit_idx):
-    """The fold on the branch ``plan`` chose → (out, idx)."""
-    branch = plan.branch
-    if branch == "exact":
-        return _fold_exact(features, warps, plan.masks_r, init_image_size,
-                           warp_agg), None
-    if branch == "pallas":
-        return warp_pallas.warp_fold(
-            *_pallas_args(features, warps, plan.masks_r, init_image_size),
-            emit_idx)
-    if branch == "xla":
-        return _fold_windowed(features, warps, plan.masks_r,
-                              init_image_size, warp_agg, plan.windows,
-                              static_empty, emit_idx)
-    if branch == "place":
-        return _fold_windowed_place(features, warps, plan.masks_r,
-                                    init_image_size, plan.windows,
-                                    static_empty, emit_idx)
-    if branch == "fallback":
-        COUNTS["scan_fallback"] += 1
+def _scan_fwd(features, warps, plan, init_image_size, emit_idx):
     return _fold_scan(features, warps, plan.masks_r, init_image_size,
-                      warp_agg, static_empty, emit_idx)
+                      plan.warp_agg, plan.static_empty, emit_idx)
+
+
+def _fallback_fwd(features, warps, plan, init_image_size, emit_idx):
+    COUNTS["scan_fallback"] += 1
+    return _scan_fwd(features, warps, plan, init_image_size, emit_idx)
+
+
+class _Branch(typing.NamedTuple):
+    """How a branch runs: ``fwd(features, warps, plan, init_image_size,
+    emit_idx) → (out, idx)``; ``bwd(g, warps, idx, plan, init_image_size)
+    → f32 feature gradient``, ``WarpFold``'s backward (None where the
+    branch has its own); ``grad(features, warps, plan, init_image_size)``,
+    the forward where the features need a gradient."""
+    fwd: typing.Callable
+    bwd: typing.Callable | None
+    grad: typing.Callable
 
 
 class WarpFold(torch.autograd.Function):
@@ -1009,42 +991,78 @@ class WarpFold(torch.autograd.Function):
     through it (JAX: ``warp_fold_matmul``'s ``_fold_fwd``/``_fold_bwd``).
 
     Saved: warps, resized masks, the argmax (int8, feature-shaped) and the
-    window starts — no feature maps, no banded weights. Gradient: features
-    only; warps and masks are host data and get none.
+    window starts — no feature maps, no banded weights; the plan's other
+    decisions ride along without its tensors. Gradient: features only;
+    warps and masks are host data and get none.
     """
 
     @staticmethod
-    def forward(ctx, features, warps, plan, init_image_size, warp_agg,
-                static_empty):
-        out, idx = _fold(features, warps, plan, init_image_size, warp_agg,
-                         static_empty, emit_idx=True)
+    def forward(ctx, features, warps, plan, init_image_size):
+        out, idx = _BRANCHES[plan.branch].fwd(features, warps, plan,
+                                              init_image_size, True)
         y0, x0 = plan.windows or (None, None)
         ctx.save_for_backward(warps, plan.masks_r, idx, y0, x0)
-        ctx.branch = plan.branch
-        ctx.args = (init_image_size, warp_agg, static_empty)
+        ctx.plan = dataclasses.replace(plan, masks_r=None, windows=None)
+        ctx.init_image_size = init_image_size
         return out
 
     @staticmethod
     def backward(ctx, g):
         warps, masks_r, idx, y0, x0 = ctx.saved_tensors
-        init_image_size, warp_agg, static_empty = ctx.args
+        plan = dataclasses.replace(
+            ctx.plan, masks_r=masks_r,
+            windows=None if y0 is None else (y0, x0))
         # g reaches here through NCHW views and channel slices: the router
         # kernel takes a contiguous, 16-byte aligned map
         if not g.is_contiguous() or g.data_ptr() % 16:
             g = g.clone(memory_format=torch.contiguous_format)
-        with span(f"fold.bwd.{g.shape[1]}x{g.shape[2]}", branch=ctx.branch):
-            if ctx.branch == "xla":
-                df = _fold_windowed_bwd(g, warps, masks_r, idx,
-                                        init_image_size, warp_agg, (y0, x0),
-                                        static_empty)
-            elif ctx.branch == "place":
-                df = _fold_windowed_place_bwd(g, warps, masks_r, idx,
-                                              init_image_size, (y0, x0),
-                                              static_empty)
-            else:
-                df = _fold_scan_bwd(g, warps, masks_r, idx, init_image_size,
-                                    warp_agg, static_empty)
-            return df.to(g.dtype), None, None, None, None, None
+        with span(f"fold.bwd.{g.shape[1]}x{g.shape[2]}", branch=plan.branch):
+            df = _BRANCHES[plan.branch].bwd(g, warps, idx, plan,
+                                            ctx.init_image_size)
+            return df.to(g.dtype), None, None, None
+
+
+_BRANCHES = {
+    "place": _Branch(_fold_windowed_place, _fold_windowed_place_bwd,
+                     WarpFold.apply),
+    "xla": _Branch(_fold_windowed, _fold_windowed_bwd, WarpFold.apply),
+    "scan": _Branch(_scan_fwd, _fold_scan_bwd, WarpFold.apply),
+    "fallback": _Branch(_fallback_fwd, _fold_scan_bwd, WarpFold.apply),
+    "pallas": _Branch(
+        lambda f, w, plan, size, emit_idx: warp_pallas.warp_fold(
+            *_pallas_args(f, w, plan.masks_r, size), emit_idx),
+        None,
+        lambda f, w, plan, size: warp_pallas.WarpFoldPallas.apply(
+            *_pallas_args(f, w, plan.masks_r, size))),
+    # recomputed in the backward: autograd would otherwise keep every part's
+    # gathered taps
+    "exact": _Branch(
+        lambda f, w, plan, size, _: (_fold_exact(f, w, plan, size), None),
+        None,
+        lambda *a: torch.utils.checkpoint.checkpoint(_fold_exact, *a,
+                                                     use_reentrant=False)),
+}
+
+
+def apply_plan(features: torch.Tensor, warps: torch.Tensor, plan: FoldPlan,
+               init_image_size: tuple[int, int]) -> torch.Tensor:
+    """One fold instance on its ``plan_folds`` entry, which holds the
+    resized masks and every setting: warp + (mask) + aggregate over the T
+    part transforms, (N, h, w, C) NHWC features and (N, T, 8) warps →
+    (N, h, w, C).
+
+    Differentiable in ``features`` (``WarpFold``, or ``WarpFoldPallas`` on
+    the fused branch, or the 'exact' fold under ``torch.utils.checkpoint``)
+    when grad mode is on and they require grad; otherwise the forward alone
+    runs, without the argmax (serving and the discriminator phase's
+    generator forward).
+    """
+    branch = _BRANCHES[plan.branch]
+    _, h, w, _ = features.shape
+    with span(f"fold.fwd.{h}x{w}", branch=plan.branch):
+        if torch.is_grad_enabled() and features.requires_grad:
+            return branch.grad(features, warps, plan, init_image_size)
+        return branch.fwd(features, warps, plan, init_image_size, False)[0]
 
 
 def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
@@ -1054,16 +1072,10 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
                            warp_agg: str = "max",
                            windowed: bool = False,
                            static_empty: tuple[int, ...] = (),
-                           plan: FoldPlan | None = None,
                            backend: str = "matmul",
                            place_impl: str = "auto") -> torch.Tensor:
-    """Warp + (mask) + aggregate over the T part transforms.
-
-    Differentiable in ``features`` (``WarpFold``, or ``WarpFoldPallas`` on
-    the fused branch, or the 'exact' fold under ``torch.utils.checkpoint``)
-    when grad mode is on and they require grad; otherwise the forward alone
-    runs, without the argmax (serving and the discriminator phase's
-    generator forward).
+    """Warp + (mask) + aggregate over the T part transforms: the one
+    instance planned by ``plan_folds`` and run by ``apply_plan``.
 
     Args:
       features: (N, h, w, C) NHWC appearance skip.
@@ -1077,32 +1089,13 @@ def affine_transform_layer(features: torch.Tensor, warps: torch.Tensor,
         part's support fits its window.
       static_empty: part indices that are empty for every input (the
         fused branch folds every part, as in the JAX package).
-      plan: this instance's ``plan_folds`` entry (computed here if None).
-      backend: 'matmul', 'pallas' or 'exact' (read only when ``plan`` is
-        None).
-      place_impl: the windowed placement, 'auto', 'kernel' or 'xla' (read
-        only when ``plan`` is None).
+      backend: 'matmul', 'pallas' or 'exact'.
+      place_impl: the windowed placement, 'auto', 'kernel' or 'xla'.
 
     Returns:
       (N, h, w, C) aggregated warped features.
     """
-    if plan is None:
-        plan = plan_folds([tuple(features.shape)], warps, masks,
-                          features.dtype, warp_skip, warp_agg, windowed,
-                          static_empty, backend, place_impl)[0]
-    _, h, w, _ = features.shape
-    with span(f"fold.fwd.{h}x{w}", branch=plan.branch):
-        if torch.is_grad_enabled() and features.requires_grad:
-            if plan.exact:
-                # recomputed in the backward: autograd would otherwise keep
-                # every part's gathered taps
-                return torch.utils.checkpoint.checkpoint(
-                    _fold_exact, features, warps, plan.masks_r,
-                    init_image_size, warp_agg, use_reentrant=False)
-            if plan.pallas:
-                return warp_pallas.WarpFoldPallas.apply(*_pallas_args(
-                    features, warps, plan.masks_r, init_image_size))
-            return WarpFold.apply(features, warps, plan, init_image_size,
-                                  warp_agg, static_empty)
-        return _fold(features, warps, plan, init_image_size, warp_agg,
-                     static_empty, emit_idx=False)[0]
+    plan = plan_folds([tuple(features.shape)], warps, masks, features.dtype,
+                      warp_skip, warp_agg, windowed, static_empty, backend,
+                      place_impl)[0]
+    return apply_plan(features, warps, plan, init_image_size)

@@ -22,11 +22,14 @@ dense banded weights would be built on every call.
 
 Three pieces for each kernel, as for every kernel of the port:
 - the wrapper (``fold_place``, ``fold_route``, ``fold_place_stream``,
-  ``warp_taps``, ``warp_taps_t``). A CPU tensor takes the plain version; a
-  CUDA tensor launches the hand-written kernel (``csrc/fold_place.cu``,
-  ``csrc/fold_route.cu``, ``csrc/fold_place_stream.cu``,
-  ``csrc/warp_taps.cu``, built by ``pose_transfer_torch._build``) or
-  raises. No path falls back from the kernel to the plain version. No
+  ``warp_taps``, ``warp_taps_t``). A CUDA tensor launches the hand-written
+  kernel (``csrc/fold_place.cu``, ``csrc/fold_route.cu``,
+  ``csrc/fold_place_stream.cu``, ``csrc/warp_taps.cu``, built by
+  ``pose_transfer_torch._build``) or raises. A CPU tensor takes the plain
+  version in the three fold wrappers and raises in the two tap wrappers:
+  ``ops.warp._warp_win`` / ``_warp_win_t`` alone choose the device for the
+  taps, and run the banded products on the CPU. No path falls back from
+  the kernel to the plain version. No
   output carries a gradient, so the wrappers refuse, under grad mode, an
   input that requires grad: the fold is differentiated by
   ``ops.warp.WarpFold``, which calls them with grad mode off (or with
@@ -219,11 +222,18 @@ def _on_card(name, tensors, c):
     """Whether to launch the kernel (CUDA) or run the plain version (CPU);
     raises on a layout the kernel does not take (the callers' shape checks
     hold the rest)."""
-    first = tensors[0]
-    if first.device.type == "cpu":
+    if tensors[0].device.type == "cpu":
         if any(t.device.type != "cpu" for t in tensors):
             raise ValueError(f"{name}: tensors on different devices")
         return False
+    _check_card(name, tensors, c)
+    return True
+
+
+def _check_card(name, tensors, c):
+    """Raise unless the tensors are on one CUDA device in a layout the
+    kernel takes."""
+    first = tensors[0]
     if first.device.type != "cuda" \
             or any(t.device != first.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
@@ -234,7 +244,6 @@ def _on_card(name, tensors, c):
         raise ValueError(f"{name}: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
-    return True
 
 
 def fold_place(body: torch.Tensor, wins: torch.Tensor, mwins: torch.Tensor,
@@ -463,6 +472,7 @@ def warp_taps(features: torch.Tensor, coeffs: torch.Tensor, s_y: int,
         inverse affine with its translation scaled to the feature
         resolution, and the window's start.
       s_y, s_x: the window's size.
+    All on one CUDA device (the plain version is ``warp_taps_reference``).
 
     Returns:
       (N, P, S_y, S_x, C) in the features' dtype: ``ops.warp._warp_win``'s
@@ -473,8 +483,7 @@ def warp_taps(features: torch.Tensor, coeffs: torch.Tensor, s_y: int,
     n, h, w, c = features.shape
     p = coeffs.shape[1]
     _refuse_grad("warp_taps", (features, coeffs))
-    if not _on_card("warp_taps", (features, coeffs), c):
-        return warp_taps_reference(features, coeffs, s_y, s_x)
+    _check_card("warp_taps", (features, coeffs), c)
     out = torch.empty((n, p, s_y, s_x, c), dtype=features.dtype,
                       device=features.device)
     lib = kernel_lib("warp_taps", 3, 8)
@@ -496,6 +505,7 @@ def warp_taps_t(g_wins: torch.Tensor, coeffs: torch.Tensor, h: int, w: int,
       h, w: the feature map's size.
       joint: f32 gradient summed over (part, window row) in f32 (the
         windows' backward); else rounded to the cotangents' dtype.
+    All on one CUDA device (the plain version is ``warp_taps_t_reference``).
 
     Returns:
       (N, H, W, C), f32 if ``joint`` else in g's dtype.
@@ -503,8 +513,7 @@ def warp_taps_t(g_wins: torch.Tensor, coeffs: torch.Tensor, h: int, w: int,
     _check_taps("warp_taps_t", g_wins, coeffs, 5)
     n, p, s_y, s_x, c = g_wins.shape
     _refuse_grad("warp_taps_t", (g_wins, coeffs))
-    if not _on_card("warp_taps_t", (g_wins, coeffs), c):
-        return warp_taps_t_reference(g_wins, coeffs, h, w, joint)
+    _check_card("warp_taps_t", (g_wins, coeffs), c)
     out = torch.empty((n, h, w, c),
                       dtype=torch.float32 if joint else g_wins.dtype,
                       device=g_wins.device)

@@ -386,8 +386,11 @@ def taps(feats, warps, masks, image_size, iters, warmup,
     byte bound of each at 3.35 TB/s, the plain versions' ms (one call each)
     and the largest difference from the banded products. The launches run
     back to back, so their inputs are warm in L2 where they fit
-    (``chip_smoke.py`` phase 3 times them cold)."""
+    (``chip_smoke.py`` phase 3 times them cold). The kernels take CUDA
+    tensors only: on the CPU the leg times the plain versions."""
     device = feats.device
+    run, run_t = (WF.warp_taps, WF.warp_taps_t) if device.type == "cuda" \
+        else (WF.warp_taps_reference, WF.warp_taps_t_reference)
     n, h, w, c = feats.shape
     item = feats.element_size()
     calls = []
@@ -406,16 +409,16 @@ def taps(feats, warps, masks, image_size, iters, warmup,
             co = W._tap_coeffs(wp, h, w, image_size, yy, xx)
             g = torch.tensor(rng.standard_normal((n, p, s_y, s_x, c)),
                              dtype=torch.float32).to(feats.dtype).to(device)
-            ms = time_call(lambda: WF.warp_taps(feats, co, s_y, s_x), iters,
-                           warmup, device)
-            ms_t = time_call(lambda: WF.warp_taps_t(g, co, h, w, joint),
-                             iters, warmup, device)
+            ms = time_call(lambda: run(feats, co, s_y, s_x), iters, warmup,
+                           device)
+            ms_t = time_call(lambda: run_t(g, co, h, w, joint), iters,
+                             warmup, device)
             # the plain versions on the same device, once each
             ms_plain = time_call(lambda: WF.warp_taps_reference(
                 feats, co, s_y, s_x), 1, 1, device)
             ms_plain_t = time_call(lambda: WF.warp_taps_t_reference(
                 g, co, h, w, joint), 1, 1, device)
-            diff = (WF.warp_taps(feats, co, s_y, s_x).float()
+            diff = (run(feats, co, s_y, s_x).float()
                     - W._warp_win_banded(feats, wp, yy, xx, s_y, s_x,
                                          image_size).float()).abs().max()
             bound = taps_bytes(n, h, w, c, p, s_y, s_x, item, item) / 3.35e9

@@ -43,6 +43,7 @@ from ..models.networks import (
     init_weights,
 )
 from ..ops.nn_loss import nn_loss
+from ..ops.warp import kernel_places
 from ..utils.spans import span
 from . import losses
 
@@ -142,16 +143,16 @@ class GANConfig:
 def auto_windowed(config: GANConfig, device: torch.device) -> bool:
     """``config.warp_windowed``, or where it is None the JAX package's auto
     rule (``engine.py:143-158``, its TPU read as a CUDA device): windowed
-    when the placement kernel places (a CUDA device, a max fold, placement
-    not 'xla'), or at a per-device batch (``batch_size // device_count``:
-    each rank or replica folds its own rows) of 16 or more, where the
-    gather/scatter placement pays for itself."""
+    when the card's placement kernel places (``ops.warp.kernel_places``: a
+    CUDA device, a max fold, placement not 'xla'), or at a per-device batch
+    (``batch_size // device_count``: each rank or replica folds its own
+    rows) of 16 or more, where the gather/scatter placement pays for
+    itself."""
     if config.warp_windowed is not None:
         return config.warp_windowed
-    kernel_place = (config.warp_place != "xla" and config.warp_agg == "max"
-                    and device.type == "cuda")
     per_device = config.batch_size // max(config.device_count, 1)
-    return kernel_place or per_device >= 16
+    return kernel_places(config.warp_place, config.warp_agg, device) \
+        or per_device >= 16
 
 
 def _init(module: torch.nn.Module, config: GANConfig,

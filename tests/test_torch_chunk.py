@@ -160,3 +160,28 @@ def test_joint_group_matches_jax(monkeypatch, group, place):
     if group == "-3":
         np.testing.assert_array_equal(out, out1)
         np.testing.assert_array_equal(df, df1)
+
+
+@pytest.mark.parametrize("place", ["xla", "kernel"])
+def test_backward_keeps_the_forward_settings(monkeypatch, place):
+    """The batch chunk and the part group are the plan's, made with the
+    forward: changing both variables between the forward and the backward
+    leaves the gradient bit for bit the one under the forward's settings
+    throughout, routed in the forward's chunks (2 MB: 3 + 3 + 1)."""
+    f, warps, masks, g = _inputs(7, seed=2)
+    monkeypatch.setenv("PT_WARP_PLACE_CHUNK_MB", "2")
+    monkeypatch.setenv("PT_WARP_JOINT_GROUP", "1")
+    _, df1, _, route1 = _port(f, warps, masks, g, place)
+    routes = []
+    real_route = twf.fold_route
+    monkeypatch.setattr(twf, "fold_route",
+                        lambda *a: routes.append(1) or real_route(*a))
+    ft = torch.tensor(f, requires_grad=True)
+    out = twarp.affine_transform_layer(
+        ft, torch.tensor(warps), torch.tensor(masks), IMG, "mask", "max",
+        windowed=True, place_impl=place)
+    monkeypatch.setenv("PT_WARP_PLACE_CHUNK_MB", "1")
+    monkeypatch.delenv("PT_WARP_JOINT_GROUP")
+    out.backward(torch.tensor(g))
+    assert len(routes) == route1 == (3 if place == "kernel" else 0)
+    np.testing.assert_array_equal(ft.grad.numpy(), df1)

@@ -235,8 +235,7 @@ def test_exact_plans_no_windows_and_launches_nothing(monkeypatch):
     plans = twarp.plan_folds([f.shape], torch.tensor(warps),
                              torch.tensor(masks), torch.float32,
                              windowed=True, backend="exact")
-    assert plans[0].exact and plans[0].windows is None
-    assert not plans[0].pallas
+    assert plans[0].branch == "exact" and plans[0].windows is None
     for mod, name in ((warp_fused, "fold_place"), (warp_fused, "fold_route"),
                       (warp_pallas, "warp_fold")):
         monkeypatch.setattr(mod, name, lambda *a: pytest.fail(name))
@@ -341,7 +340,7 @@ def test_exact_config_runs_through_create_state():
     cfg = engine.GANConfig(image_size=SIZE, pose_dim=18, batch_size=N,
                            warp_backend="exact", check_mode=True)
     state = engine.create_state(cfg, device="cpu")
-    assert state.gen.warp_backend == "exact"
+    assert state.gen.folds.backend == "exact"
     metrics, out = engine.make_train_step(cfg, state)(*_batches(4))
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert tuple(out.shape) == (N, *SIZE, 3)

@@ -9,6 +9,8 @@ gradient (torch autograd against ``jax.vjp``). Inputs come from numpy seeds
 and are fed to both packages.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -265,9 +267,9 @@ def test_windowed_fold_equals_scan_fold():
     f, warps, masks = (torch.tensor(a) for a in _fold_inputs(True))
     plan = twarp.plan_folds([tuple(f.shape)], warps, masks, f.dtype,
                             windowed=True)[0]
-    assert plan.windows is not None and plan.fits
-    out_w, _ = twarp._fold_windowed_place(f, warps, plan.masks_r, IMG,
-                                          plan.windows, emit_idx=False)
+    assert plan.branch == "place" and plan.windows is not None
+    out_w, _ = twarp._fold_windowed_place(f, warps, plan, IMG,
+                                          emit_idx=False)
     out_s, _ = twarp._fold_scan(f, warps, plan.masks_r, IMG, "max",
                                 emit_idx=False)
     torch.testing.assert_close(out_w, out_s, atol=5e-5, rtol=0)
@@ -305,9 +307,9 @@ def test_windowed_place_idx_matches_jax():
                             windowed=True)[0]
     np.testing.assert_array_equal(plan.windows[0].numpy(), np.asarray(y0))
     np.testing.assert_array_equal(plan.windows[1].numpy(), np.asarray(x0))
-    to, ti = twarp._fold_windowed_place(torch.tensor(f), torch.tensor(warps),
-                                        tm, IMG, plan.windows,
-                                        emit_idx=True)
+    to, ti = twarp._fold_windowed_place(
+        torch.tensor(f), torch.tensor(warps),
+        dataclasses.replace(plan, masks_r=tm), IMG, emit_idx=True)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=5e-5)
     np.testing.assert_array_equal(
         ti.numpy(), np.asarray(ji.astype(jnp.float32)).astype(np.int8))

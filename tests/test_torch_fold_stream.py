@@ -115,10 +115,9 @@ def test_stream_equals_monolithic_fold_place(dtype, with_idx):
     warps = torch.tensor(warps).to(td)
     plan = twarp.plan_folds([tuple(f.shape)], warps, torch.tensor(masks), td,
                             windowed=True)[0]
-    assert plan.fits and not plan.xla
+    assert plan.branch == "place"
     s_y, s_x = twarp._kernel_window_sizes(H, W)
-    sel, mwins, offs = twarp._place_args(plan.masks_r, plan.windows, H, W, 4,
-                                         ())
+    sel, mwins, offs = twarp._place_args(plan, 4)
     y0, x0 = plan.windows
     body = twarp._warp_full(f, warps[:, 0], (H, W)) \
         * plan.masks_r[:, 0][..., None]

@@ -58,21 +58,21 @@ def _port(f, warps, masks, g, agg, se, place):
     layer."""
     ft = torch.tensor(f, requires_grad=True)
     calls = []
-    real = twarp._fold_windowed
+    xla = twarp._BRANCHES["xla"]
 
     def counted(*a, **k):
         calls.append(1)
-        return real(*a, **k)
+        return xla.fwd(*a, **k)
 
     before = twarp.COUNTS["scan_fallback"]
-    twarp._fold_windowed = counted
+    twarp._BRANCHES["xla"] = xla._replace(fwd=counted)
     try:
         out = twarp.affine_transform_layer(
             ft, torch.tensor(warps), torch.tensor(masks), IMG, "mask", agg,
             windowed=True, static_empty=se, place_impl=place)
         out.backward(torch.tensor(g))
     finally:
-        twarp._fold_windowed = real
+        twarp._BRANCHES["xla"] = xla
     return (out.detach().numpy(), ft.grad.numpy(),
             twarp.COUNTS["scan_fallback"] - before, len(calls))
 
@@ -124,13 +124,18 @@ def test_placements_agree_on_fits(fit):
     args = (shapes, torch.tensor(warps), torch.tensor(masks), torch.float32)
     kernel = twarp.plan_folds(*args, windowed=True, place_impl="kernel")
     xla = twarp.plan_folds(*args, windowed=True, place_impl="xla")
-    assert [p.fits for p in kernel] == [p.fits for p in xla] == [fit, False]
-    assert not kernel[0].xla and xla[0].xla
+    assert [p.branch for p in kernel] == ["place" if fit else "fallback",
+                                          "scan"]
+    assert [p.branch for p in xla] == ["xla" if fit else "fallback", "scan"]
+    # the kernel's windows widened and aligned, the XLA-style (h/2, w/2)
+    assert kernel[0].sizes == (H // 2, W // 2 + 16)
+    assert xla[0].sizes == (H // 2, W // 2)
     # 32² is too small to window: no windows under either placement
     assert kernel[1].windows is None and xla[1].windows is None
     # 'avg' has no placement kernel: 'auto' takes the XLA-style placement
     avg = twarp.plan_folds(*args, warp_agg="avg", windowed=True)[0]
-    assert avg.xla and avg.windows is not None
+    assert avg.branch == ("xla" if fit else "fallback")
+    assert avg.windows is not None and avg.sizes == (H // 2, W // 2)
     with pytest.raises(ValueError, match="place_impl"):
         twarp.plan_folds(*args, windowed=True, place_impl="scatter")
 
@@ -142,9 +147,9 @@ def test_xla_placement_launches_no_kernel_and_emits_no_idx(monkeypatch):
     for name in ("fold_place", "fold_route"):
         monkeypatch.setattr(twf, name, None)
     seen = []
-    real = twarp._fold_windowed
-    monkeypatch.setattr(twarp, "_fold_windowed",
-                        lambda *a: seen.append(a[-1]) or real(*a))
+    xla = twarp._BRANCHES["xla"]
+    monkeypatch.setitem(twarp._BRANCHES, "xla", xla._replace(
+        fwd=lambda *a: seen.append(a[-1]) or xla.fwd(*a)))
     with torch.no_grad():
         twarp.affine_transform_layer(f, warps, masks, IMG, windowed=True,
                                      place_impl="xla")
@@ -172,7 +177,7 @@ def test_warp_place_config_and_windowed_rule():
         dataclasses.replace(cfg, batch_size=32, warp_windowed=False), cuda)
     gen = build_models(dataclasses.replace(cfg, warp_place="xla",
                                            batch_size=16), device="cpu")
-    assert gen.warp_place == "xla" and gen.warp_windowed
+    assert gen.folds.place == "xla" and gen.folds.windowed
     with pytest.raises(ValueError, match="place_impl"):
         DeformableGenerator(18, (64, 64), (8, 16), (16, 3),
                             warp_place="scatter")
@@ -193,13 +198,13 @@ def test_generator_threads_warp_place(monkeypatch):
         for prm in gen.parameters():
             torch.nn.init.normal_(prm, std=0.2)
         seen = []
-        real = twarp._fold_windowed
-        monkeypatch.setattr(twarp, "_fold_windowed",
-                            lambda *a: seen.append(1) or real(*a))
+        xla = twarp._BRANCHES["xla"]
+        monkeypatch.setitem(twarp._BRANCHES, "xla", xla._replace(
+            fwd=lambda *a: seen.append(1) or xla.fwd(*a)))
         with torch.no_grad():
             outs[place] = gen.eval()(inp, torch.tensor(warps),
                                      torch.tensor(masks))
-        monkeypatch.setattr(twarp, "_fold_windowed", real)
+        monkeypatch.setitem(twarp._BRANCHES, "xla", xla)
         # 64² windows (xla only); the 32² stage takes the scan
         assert len(seen) == (place == "xla")
     # f32 tanh outputs; the fold's ulp-level reassociation carried through
@@ -219,9 +224,10 @@ def test_xla_placement_idx_matches_jax(static_empty):
                                   IMG, "max", windows, static_empty)
     y0, x0, _, _ = twarp._support_windows(torch.tensor(masks), H // 2,
                                           W // 2)
-    to, ti = twarp._fold_windowed(torch.tensor(f), torch.tensor(warps),
-                                  torch.tensor(masks), IMG, "max", (y0, x0),
-                                  static_empty)
+    plan = twarp.FoldPlan(torch.tensor(masks), "max", static_empty, "xla",
+                          (y0, x0), (H // 2, W // 2))
+    to, ti = twarp._fold_windowed(torch.tensor(f), torch.tensor(warps), plan,
+                                  IMG)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=5e-5, rtol=0)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     assert set(np.unique(ti.numpy())) >= {-1, 0, 1, 2}

@@ -22,6 +22,8 @@ from pose_transfer_torch.core import transforms_host as tth
 from pose_transfer_torch.data import dataset as tds
 from pose_transfer_torch.data import synthetic as tsyn
 
+from _source_fits import fits_from_source  # noqa: F401  (fixture)
+
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,9 +49,10 @@ def test_skeleton_schemas_match():
 
 @pytest.mark.parametrize("pose_dim,missing_prob",
                          [(18, 0.0), (18, 0.3), (16, 0.0)])
-def test_transforms_host_match(pose_dim, missing_prob):
+def test_transforms_host_match(pose_dim, missing_prob, fits_from_source):
     """Affine fits (with the mirrored-limb fallback and sentinels when
     joints are missing) and mask polygons are equal."""
+    tth, jth = fits_from_source
     size = (128, 128)
     for kp1, kp2 in _pairs(pose_dim, missing_prob=missing_prob, size=size):
         np.testing.assert_array_equal(
@@ -63,6 +66,7 @@ def test_transforms_host_match(pose_dim, missing_prob):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.usefixtures("fits_from_source")
 @pytest.mark.parametrize("warp_skip", ["mask", "full"])
 def test_warp_fit_and_collate_match(warp_skip):
     size = (64, 64)
@@ -81,6 +85,7 @@ def test_warp_fit_and_collate_match(warp_skip):
         np.testing.assert_array_equal(bt[k], bj[k])
 
 
+@pytest.mark.usefixtures("fits_from_source")
 @pytest.mark.parametrize("warp_skip", ["mask", "full"])
 def test_synthetic_batch_matches(warp_skip):
     """Same seed → the same skeletons, images and compact batch."""

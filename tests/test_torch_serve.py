@@ -172,10 +172,10 @@ def test_build_models_seeded_and_auto_rule():
     # Glorot-uniform bound sqrt(6 / (fan_in + fan_out)), k4: 16·(64 + 128)
     assert a.state_dict()[w].abs().max() <= (6 / (16 * 192)) ** 0.5
     # the windowed fold is on by default only where the kernel runs
-    assert not a.warp_windowed
+    assert not a.folds.windowed
     del a
     assert build_models(dataclasses.replace(CFG, warp_windowed=True),
-                        device="cpu").warp_windowed
+                        device="cpu").folds.windowed
 
 
 def test_entry_points_default_to_cuda():

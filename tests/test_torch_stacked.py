@@ -61,6 +61,8 @@ from pose_transfer_torch.train import checkpoint, engine
 from pose_transfer_torch.utils import image_io
 from pose_transfer_torch.utils import visualize as tvis
 
+from _source_fits import fits_from_source  # noqa: F401  (fixture)
+
 torch.set_num_threads(2)
 
 SIZE = (64, 64)
@@ -157,6 +159,7 @@ def test_pose_interpolation_matches_jax(pose_dim, num_stacks):
         np.testing.assert_array_equal(seq[-1], kp_to)
 
 
+@pytest.mark.usefixtures("fits_from_source")
 @pytest.mark.parametrize("warp_skip", ["mask", "full"])
 @pytest.mark.parametrize("pose_dim", [16, 18])
 def test_interpol_chain_matches_jax(pose_dim, warp_skip):
@@ -174,6 +177,7 @@ def test_interpol_chain_matches_jax(pose_dim, warp_skip):
         assert got[1].shape[0] == 5          # num_stacks + 1 fits
 
 
+@pytest.mark.usefixtures("fits_from_source")
 @pytest.mark.parametrize("gen_type,warp_skip", [
     ("stacked", "mask"), ("stacked", "full"), ("unet", "mask")])
 def test_synthetic_batch_matches_jax(gen_type, warp_skip):
@@ -206,6 +210,7 @@ def jax_dataset(tmp_path_factory):
     return opt
 
 
+@pytest.mark.usefixtures("fits_from_source")
 @pytest.mark.parametrize("gen_type", ["stacked", "unet"])
 def test_dataset_samples_match_jax(jax_dataset, gen_type):
     """On the JAX writer's dataset: every sample key for key, exactly (the

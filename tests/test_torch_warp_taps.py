@@ -1,7 +1,7 @@
 """The two-pass warp's tap kernels, ``warp_taps`` and ``warp_taps_t``.
 
 CPU: the plain tap versions (``warp_taps_reference``,
-``warp_taps_t_reference``, which the wrappers run on CPU tensors) against
+``warp_taps_t_reference``; the wrappers take CUDA tensors only) against
 the banded products of ``ops/warp.py`` (``_warp_win_banded``,
 ``_warp_win_t_banded``), on transforms that exercise the taps' edge cases:
 identity, rotation, up- and down-scaling, flips, m00 = 0, windows at and
@@ -106,7 +106,8 @@ def _ulps_f32(diff, ref, k):
 def test_forward_matches_banded(dtype, case, parts):
     f, warps, y0, x0, s_y, s_x, init = _inputs(case, dtype, p=parts)
     ref = W._warp_win_banded(f, warps, y0, x0, s_y, s_x, init)
-    out = WF.warp_taps(f, _coeffs(f, warps, y0, x0, init), s_y, s_x)
+    out = WF.warp_taps_reference(f, _coeffs(f, warps, y0, x0, init), s_y,
+                                 s_x)
     assert out.shape == ref.shape and out.dtype == dtype
     if dtype == torch.bfloat16:
         assert torch.equal(out, ref)
@@ -127,7 +128,8 @@ def _transpose_pair(case, dtype, joint, parts, seed=0):
                                           f.shape[3])),
                      dtype=torch.float32).to(dtype)
     ref = W._warp_win_t_banded(g, warps, y0, x0, h, w, init, joint)
-    out = WF.warp_taps_t(g, _coeffs(f, warps, y0, x0, init), h, w, joint)
+    out = WF.warp_taps_t_reference(g, _coeffs(f, warps, y0, x0, init), h, w,
+                                   joint)
     return out, ref
 
 
@@ -166,8 +168,10 @@ def test_transpose_is_the_adjoint(case):
     rng = np.random.default_rng(4)
     g = torch.tensor(rng.standard_normal((f.shape[0], 9, s_y, s_x,
                                           f.shape[3])), dtype=torch.float32)
-    lhs = (WF.warp_taps(f, co, s_y, s_x).double() * g.double()).sum()
-    rhs = (f.double() * WF.warp_taps_t(g, co, h, w, True).double()).sum()
+    lhs = (WF.warp_taps_reference(f, co, s_y, s_x).double()
+           * g.double()).sum()
+    rhs = (f.double()
+           * WF.warp_taps_t_reference(g, co, h, w, True).double()).sum()
     norm = (f.double().norm() * g.double().norm()).item()
     assert abs(lhs.item() - rhs.item()) <= 1e-6 * norm
 
@@ -180,10 +184,10 @@ def test_full_map_is_the_window_at_the_origin():
     zero = torch.zeros((n, 1), dtype=torch.int64)
     ref = W._warp_win_banded(f, warps, zero, zero, h, w, init)[:, 0]
     co = _coeffs(f, warps, zero, zero, init)
-    assert torch.equal(WF.warp_taps(f, co, h, w)[:, 0], ref)
+    assert torch.equal(WF.warp_taps_reference(f, co, h, w)[:, 0], ref)
     assert torch.equal(W._warp_full(f, warps[:, 0], init), ref)
     g = ref.clone()
-    df = WF.warp_taps_t(g[:, None], co, h, w, False)
+    df = WF.warp_taps_t_reference(g[:, None], co, h, w, False)
     df_ref = W._warp_win_t_banded(g[:, None], warps, zero, zero, h, w, init,
                                   False)
     assert (df.float() - df_ref.float()).abs().max() \
@@ -200,15 +204,19 @@ def test_wrappers_check_inputs_and_refuse_grad():
     g = torch.zeros((2, 3, s_y, s_x, 8), requires_grad=True)
     with pytest.raises(RuntimeError, match="requires grad"):
         WF.warp_taps_t(g, co, 20, 24, True)
-    with torch.no_grad():         # no grad mode: no refusal
+    # no grad mode: no refusal; the wrappers take CUDA tensors only (the
+    # CPU runs the banded products, ``ops.warp._warp_win``)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         WF.warp_taps(fg, co, s_y, s_x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        WF.warp_taps_t(g.detach(), co, 20, 24, True)
     with pytest.raises(TypeError, match="dtype"):
         WF.warp_taps(f.double(), co, s_y, s_x)
     with pytest.raises(ValueError, match="coeffs"):
         WF.warp_taps(f, co[..., :6], s_y, s_x)
     with pytest.raises(ValueError, match="coeffs"):
         WF.warp_taps_t(g.detach()[:, :2], co, 20, 24, True)
-    assert WF.LAUNCHES == before      # the CPU runs the plain versions
+    assert WF.LAUNCHES == before
 
 
 # ---------------------------------------------------------------- CUDA ---
@@ -321,8 +329,7 @@ def test_cuda_fold_branches_match_banded(branch):
 
     def run():
         f = feats.clone().requires_grad_(True)
-        out = W.affine_transform_layer(f, warps, masks, image,
-                                       windowed=True, plan=plan)
+        out = W.apply_plan(f, warps, plan, image)
         out.backward(g)
         return out.detach(), f.grad
 
@@ -360,4 +367,5 @@ def test_cuda_refuses_grad_and_counts():
     out = WF.warp_taps(f, co, s_y, s_x)
     torch.cuda.synchronize()
     assert WF.LAUNCHES["warp_taps"] == before["warp_taps"] + 1
-    assert torch.equal(out.cpu(), WF.warp_taps(f.cpu(), co.cpu(), s_y, s_x))
+    assert torch.equal(out.cpu(),
+                       WF.warp_taps_reference(f.cpu(), co.cpu(), s_y, s_x))
